@@ -1,0 +1,192 @@
+"""Command-line interface of the PyTorch port (``twstft-torch``).
+
+Ported verbs so far:
+
+- ``dllpll`` — the DLL/PLL multi-channel receiver (``rxcomplex.cpp
+  data.bin`` with ``sdr.param``), through the device-banked receiver.
+
+It runs on the card unless ``--device cpu`` is given.  ``--host`` (the
+host-sequential receiver) and ``--serve`` (the TCP monitor) are not
+ported yet and exit with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def _dllpll_parser(sub) -> None:
+    p = sub.add_parser("dllpll", help="DLL/PLL multi-channel receiver")
+    p.add_argument("capture")
+    p.add_argument("--param", required=True, help="sdr.param channel file")
+    p.add_argument("--fs", type=float, default=5e6)
+    p.add_argument("--seconds", type=int, default=0, help="0 = whole file")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' runs the "
+                        "kernels' plain versions)")
+    p.add_argument("--host", action="store_true",
+                   help="host-sequential receiver (not ported yet)")
+    p.add_argument("--out-dir", default=None,
+                   help="write per-channel .dat rows + rxcomplex.log here "
+                        "(rxcomplex.cpp:724,736-753)")
+    p.add_argument("--real", action="store_true",
+                   help="rx.cpp real-sample mode (non-IQ capture)")
+    p.add_argument("--follow", action="store_true",
+                   help="tail a GROWING capture, processing each second "
+                        "as it completes; stops after --idle-timeout "
+                        "without growth")
+    p.add_argument("--idle-timeout", type=float, default=10.0,
+                   help="--follow: seconds without file growth = end of "
+                        "acquisition")
+    p.add_argument("--serve", type=int, metavar="PORT", default=None,
+                   help="broadcast reports to TCP subscribers (not "
+                        "ported yet)")
+    p.add_argument("--group", type=int, default=8,
+                   help="channels per batched lag-bank launch")
+    # the reference derives code geometry from an internal PRN table
+    # keyed by the sdr.param row's id (rxcomplex.cpp:298-320); these
+    # flags play that table's role for non-default codes
+    p.add_argument("--bitlen", type=int, default=None,
+                   help="LFSR bits of every channel's code")
+    p.add_argument("--code-len", type=int, default=None,
+                   help="chips per code of every channel")
+    p.add_argument("--nlag", type=int, default=None)
+    p.add_argument("--taps-map", default=None,
+                   help="per-PRN taps, e.g. '100=9,101=27'")
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="twstft-torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    _dllpll_parser(sub)
+    args = parser.parse_args(argv)
+    if args.cmd == "dllpll":
+        if args.host:
+            parser.error("dllpll --host: the host-sequential receiver is "
+                         "not ported yet")
+        if args.serve is not None:
+            parser.error("dllpll --serve: the report server is not ported "
+                         "yet")
+        return _dllpll(args)
+    parser.error(f"unknown command {args.cmd}")
+    return 2
+
+
+def _dllpll(args) -> int:
+    from amaranth_twstft_tpu_torch.models.dllpll import parse_sdr_param
+    from amaranth_twstft_tpu_torch.models.tracker import (
+        BankedReceiver,
+        MultiBankReceiver,
+    )
+    from amaranth_twstft_tpu_torch.utils import io
+
+    with open(args.param) as f:
+        chans = parse_sdr_param(f.read())
+    if args.bitlen or args.code_len or args.nlag or args.taps_map:
+        taps_map = {}
+        if args.taps_map:
+            for kv in args.taps_map.split(","):
+                k, v = kv.split("=")
+                taps_map[int(k)] = int(v)
+        chans = [
+            dataclasses.replace(
+                c,
+                bit_len=args.bitlen or c.bit_len,
+                code_len=args.code_len or c.code_len,
+                nlag=args.nlag or c.nlag,
+                taps=taps_map.get(c.prn_id, c.taps),
+            )
+            for c in chans
+        ]
+    # one banked receiver per homogeneous channel geometry
+    geoms = {
+        (int(round(args.fs / c.chip_rate)) * c.code_len,
+         c.codes_per_second, c.nlag)
+        for c in chans
+    }
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+    if len(geoms) > 1:
+        print(
+            f"{len(geoms)} channel geometries: one banked pass per group "
+            "(MultiBankReceiver)",
+            file=sys.stderr,
+        )
+    cls = BankedReceiver if len(geoms) == 1 else MultiBankReceiver
+    rx = cls(
+        chans, fs=args.fs, group=args.group, real_input=args.real,
+        out_dir=args.out_dir, device=args.device,
+    )
+
+    fs = int(args.fs)
+    # each tracked second wants fs + nobs samples (the receivers pad a
+    # shorter tail), so second s is processable once (s+1)*fs exist
+    max_nobs = max(
+        int(round(args.fs / c.chip_rate)) * c.code_len for c in chans
+    )
+
+    def seconds_gen():
+        """Per-second sample dicts with the --follow/idle contract."""
+        s = 0
+        idle = 0.0
+        last_total = -1
+        while True:
+            total = io.n_samples_sc16(args.capture, channels=2)
+            if total > last_total:
+                # --follow idleness = no FILE GROWTH
+                idle = 0.0
+                last_total = total
+            if args.seconds and s >= args.seconds:
+                return
+            if total < (s + 1) * fs:
+                if not args.follow or idle >= args.idle_timeout:
+                    return
+                time.sleep(0.2)
+                idle += 0.2
+                continue
+            n_take = min(fs + max_nobs, total - s * fs)
+            d, _ = io.read_sc16_epochs(args.capture, s * fs, 1, n_take,
+                                       channels=2)
+            if d.shape[1] == 0:
+                return
+            sec = {"A": d[0, 0], "B": d[1, 0]}
+            if args.real:
+                sec = {k: np.real(v) for k, v in sec.items()}
+            yield sec
+            s += 1
+
+    def emit(sec_idx, reports):
+        for ch, rep in zip(rx.channels, reports):
+            if rep is None:
+                continue
+            print(
+                f"{sec_idx} {ch.cfg.physical} PRN{ch.cfg.prn_id} "
+                f"{rep.fc_hz:14.6f} {rep.phi_cycles:11.8f} "
+                f"{rep.cnt:3d} {rep.gd_ns:14.6f} {rep.dg_ns_per_s:11.6f} "
+                f"{rep.sdgd_ns:8.4f} {rep.pk_dbm:7.3f} {rep.pnoise_dbm:7.3f}"
+            )
+
+    if len(geoms) == 1:
+        # prefetching stream driver: second s+1's upload is queued before
+        # second s is processed (run_stream serializes SIC configs itself)
+        for s_idx, reports in enumerate(rx.run_stream(seconds_gen())):
+            emit(s_idx, reports)
+    else:
+        for s_idx, sec in enumerate(seconds_gen()):
+            emit(s_idx, rx.process_second(sec))
+    for line in rx.log:
+        print(line, file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

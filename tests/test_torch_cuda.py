@@ -1,0 +1,104 @@
+"""Tests of the port that need a CUDA card (marker ``cuda``; without a card
+they skip).  They import neither JAX nor the JAX package, so they run on a
+machine that has only PyTorch, without the JAX test harness:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from amaranth_twstft_tpu_torch import SignalConfig
+from amaranth_twstft_tpu_torch.models import dllpll as td
+from amaranth_twstft_tpu_torch.models import tracker as tt
+from amaranth_twstft_tpu_torch.models.emitter import ChannelSim, synthesize_capture
+from amaranth_twstft_tpu_torch.ops import lagbank as tlb
+
+pytestmark = pytest.mark.cuda
+
+# the card against the CPU: float32 sums in other orders (the kernel's
+# K-chunks, cuFFT) — the same bounds as the port against the JAX package
+# in tests/test_torch_tracker.py
+FC_HZ = 1e-3
+GD_NS = 1.0  # 1e-4 sample at fs = 1e5
+PHI_CYCLES = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _close(kernel_out, plain_out):
+    """power within 1e-4 of each row's maximum; phase within 1e-4 cycles
+    wherever power >= 1e-3 x the row maximum."""
+    pk, phk = kernel_out[:2]
+    pp, php = plain_out[:2]
+    rowmax = pp.amax(-1, keepdim=True)
+    assert float(((pk - pp).abs() / rowmax).max()) < 1e-4
+    dph = torch.remainder(phk - php + 0.5, 1.0) - 0.5
+    assert float(dph.abs()[pp >= 1e-3 * rowmax].max()) < 1e-4
+
+
+def test_kernel_matches_plain_on_card(cuda):
+    """The hand-written kernel against its plain version, both input
+    forms, at unaligned shapes and the production group shape."""
+    gen = torch.Generator().manual_seed(0)
+    for g, p, k, nlag in [(3, 49, 2000, 8), (1, 5, 300, 2), (8, 24, 200_000, 28)]:
+        obs = torch.randn(g, 2, p, k, generator=gen).to(cuda)
+        wav_ext = torch.randn(g, k + 2 * nlag, generator=gen).to(cuda)
+        before = tlb.lag_bank_kernel.launches
+        _close(tlb.lag_bank_windows(obs, wav_ext, nlag),
+               tlb.lag_bank_windows_plain(obs, wav_ext, nlag))
+        w_mat = wav_ext[0].unfold(-1, k, 1).flip(0).T.contiguous()
+        _close(tlb.lag_bank_correlate(obs[0], w_mat), tlb.lag_bank_plain(obs[0], w_mat))
+        assert tlb.lag_bank_kernel.launches == before + 2
+    torch.cuda.synchronize()
+
+
+def test_bank_on_card_matches_cpu(cuda):
+    """Four seconds of the banked receiver on the card against the same
+    receiver on the CPU (plain lag bank): same log lines and lock counts,
+    fc/gd/phi within the bounds above, and the kernel launched."""
+    cfg = SignalConfig(fs=1e5, chip_rate=5e4, code_len=1000, bit_len=10, taps=9)
+    (stream,) = synthesize_capture(
+        cfg,
+        [ChannelSim(delay_samples=137.2, doppler_hz=120.0, amplitude=900,
+                    noise_sigma=120)],
+        n_seconds=5, seed=17,
+        extra_emissions=[(dataclasses.replace(cfg, taps=27),
+                          ChannelSim(delay_samples=555.0, doppler_hz=-210.0,
+                                     amplitude=900, noise_sigma=0.0))],
+    )
+    chans = [
+        td.ChannelConfig(physical="A", prn_id=100 + i, bit_len=10, taps=t,
+                         fc_init_hz=0.0, chip_rate=5e4, code_len=1000,
+                         filter_hz=5e4, acq_range_hz=500.0, acq_step_hz=50.0,
+                         snr_min_db=20.0, nlag=8)
+        for i, t in enumerate((9, 27))
+    ]
+    fs, L = 100_000, 2000
+    secs = [{"A": stream[s * fs : (s + 1) * fs + 2 * L]} for s in range(4)]
+    rx_c = tt.BankedReceiver(chans, fs=cfg.fs, device="cpu")
+    rx_g = tt.BankedReceiver(chans, fs=cfg.fs, device=cuda)
+    before = tlb.lag_bank_kernel.launches
+    rep_c = list(rx_c.run_stream(iter(secs)))
+    rep_g = list(rx_g.run_stream(iter(secs)))
+    assert tlb.lag_bank_kernel.launches > before
+    assert rx_g.log == rx_c.log
+    assert any("code lock" in ln for ln in rx_g.log)
+    for sec_c, sec_g in zip(rep_c, rep_g):
+        for a, b in zip(sec_c, sec_g):
+            assert (a is None) == (b is None)
+            if a is None:
+                continue
+            assert a.locked == b.locked and a.cnt == b.cnt
+            assert abs(a.fc_hz - b.fc_hz) < FC_HZ
+            assert abs(a.gd_ns - b.gd_ns) < GD_NS
+            assert abs(a.phi_cycles - b.phi_cycles) < PHI_CYCLES
+    assert [s.pt for s in rx_g.states] == [s.pt for s in rx_c.states]
+    assert all(r is not None and r.locked for r in rep_g[3])

@@ -1,0 +1,95 @@
+"""The port's lag bank (plain version, CPU) against the JAX package's
+XLA dots and its Pallas kernel in interpret mode."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from amaranth_twstft_tpu.ops.lagbank import _lag_bank_jnp, lag_bank_pallas
+from amaranth_twstft_tpu_torch.ops import lagbank as tlb
+
+# float32 sums over K ~ 3e3 terms in different orders: power rtol 2e-4
+# (as tests/test_lagbank.py holds Pallas against the dots), phase atol
+# 1e-5 cycles
+POWER_RTOL = 2e-4
+PHASE_ATOL = 1e-5
+
+
+def _phase_diff(a, b):
+    return np.abs(np.mod(np.asarray(a) - np.asarray(b) + 0.5, 1.0) - 0.5)
+
+
+@pytest.mark.parametrize("c,k,nl", [(6, 3000, 11), (24, 2000, 17), (5, 257, 57)])
+def test_plain_matches_jax_dots_and_pallas(c, k, nl):
+    rng = np.random.default_rng(c * 1000 + nl)
+    obs = rng.normal(size=(2, c, k)).astype(np.float32)
+    wav = rng.normal(size=(k, nl)).astype(np.float32)
+    pw, ph = tlb.lag_bank_correlate(torch.from_numpy(obs), torch.from_numpy(wav))
+    pw_j, ph_j = _lag_bank_jnp(jnp.asarray(obs), jnp.asarray(wav))
+    pw_p, ph_p = lag_bank_pallas(
+        jnp.asarray(obs), jnp.asarray(wav), interpret=True, k_chunk=1024
+    )
+    for ref_pw, ref_ph in ((pw_j, ph_j), (pw_p, ph_p)):
+        np.testing.assert_allclose(pw.numpy(), np.asarray(ref_pw), rtol=POWER_RTOL)
+        assert _phase_diff(ph.numpy(), ref_ph).max() < PHASE_ATOL
+
+
+@pytest.mark.parametrize("g,p,k,nlag", [(3, 7, 1000, 8), (2, 24, 2000, 28)])
+def test_windows_match_rolled_lag_matrix(g, p, k, nlag):
+    """The bank's shifted-window form equals the explicit np.roll lag
+    matrix of the host receiver (dllpll.py:539-545) — lag l is
+    roll(wav, l - nlag) — and its re/im are the products' parts."""
+    rng = np.random.default_rng(g * 10 + p)
+    obs = rng.normal(size=(g, 2, p, k)).astype(np.float32)
+    wav = rng.normal(size=(g, k)).astype(np.float32)
+    wav_ext = np.concatenate([wav[:, -nlag:], wav, wav[:, :nlag]], axis=1)
+    power, phase, re, im = tlb.lag_bank_windows(
+        torch.from_numpy(obs), torch.from_numpy(wav_ext), nlag, power_scale=0.5
+    )
+    assert power.shape == (g, p, 2 * nlag + 1)
+    for i in range(g):
+        lags = np.arange(-nlag, nlag + 1)
+        W = np.stack([np.roll(wav[i], lag) for lag in lags], axis=1)
+        pw_j, ph_j = _lag_bank_jnp(jnp.asarray(obs[i]), jnp.asarray(W))
+        np.testing.assert_allclose(power[i].numpy(), np.asarray(pw_j), rtol=POWER_RTOL)
+        assert _phase_diff(phase[i].numpy(), ph_j).max() < PHASE_ATOL
+        re64 = obs[i, 0].astype(np.float64) @ W
+        im64 = obs[i, 1].astype(np.float64) @ W
+        scale = np.abs(re64).max() + np.abs(im64).max()
+        assert np.abs(re[i].numpy() - re64).max() < 1e-5 * scale
+        assert np.abs(im[i].numpy() - im64).max() < 1e-5 * scale
+
+
+def test_power_scale_and_shape_checks():
+    rng = np.random.default_rng(5)
+    obs = torch.from_numpy(rng.normal(size=(1, 2, 3, 64)).astype(np.float32))
+    wav_ext = torch.from_numpy(rng.normal(size=(1, 64 + 4)).astype(np.float32))
+    p1, _, re, im = tlb.lag_bank_windows(obs, wav_ext, 2, power_scale=0.5)
+    p2, _, _, _ = tlb.lag_bank_windows(obs, wav_ext, 2, power_scale=2.0)
+    np.testing.assert_allclose(p2.numpy(), 4.0 * p1.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(
+        p1.numpy(), 0.5 * (re.numpy() ** 2 + im.numpy() ** 2), rtol=1e-6
+    )
+    with pytest.raises(ValueError):
+        tlb.lag_bank_windows(obs, wav_ext[:, :-1], 2)
+    with pytest.raises(TypeError):
+        tlb.lag_bank_windows(obs.double(), wav_ext.double(), 2)
+    with pytest.raises(ValueError):
+        tlb.lag_bank_correlate(obs[0], torch.zeros(63, 5))
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel entry takes CUDA tensors only; CPU tensors reach the
+    plain version through the public wrappers, never the kernel."""
+    before = tlb.lag_bank_kernel.launches
+    obs = torch.zeros(1, 2, 4, 256)
+    wav_ext = torch.zeros(1, 256 + 4)
+    with pytest.raises(ValueError):
+        tlb.lag_bank_kernel(
+            obs, wav_ext, G=1, P=4, K=256, NL=5,
+            obs_strides=(2 * 4 * 256, 4 * 256, 256),
+            w_layout=(260, 1, -1, 4, 260), power_scale=0.5,
+        )
+    tlb.lag_bank_windows(obs, wav_ext, 2)
+    assert tlb.lag_bank_kernel.launches == before
