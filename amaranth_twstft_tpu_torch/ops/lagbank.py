@@ -22,8 +22,18 @@ On a CPU tensor each wrapper computes the plain version (einsum + atan2);
 on a CUDA tensor it launches the kernel or raises — there is no fallback.
 ``lag_bank_kernel.launches`` counts kernel launches.
 
-Bound on the card (see the source note in ``csrc/lagbank.cu``): fp32 FMA
-throughput; no TF32 (PARITY deviation 12).
+Bound on the card (see the source note in ``csrc/lagbank.cu``): the
+window form runs on the tensor cores as compensated 3xTF32 products
+(``mma.sync`` m16n8k8, each operand split into two tf32 parts, each
+stage's partial added to an IEEE fp32 sum: fp32-class error, so PARITY
+deviation 12 holds), fed by ``cp.async.bulk`` copies of obs through a
+shared-memory ring.  Its floor is reading obs once from device memory,
+but on the H100 the products alone take longer than the copies alone
+(``tools/gpu_lagbank_probe.py``): ``mma.sync``'s rate bounds it, and
+``wgmma`` is the next step.  The bulk copies need 16-byte-aligned rows:
+:func:`lag_bank_windows` pads obs with zeros to a K that is a multiple of
+4 where it is not.  The explicit (K, NL) form stays on fp32 FFMA.
+torch's own TF32 stays off (``check_no_tf32``).
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ __all__ = [
     "lag_bank_windows",
     "lag_bank_plain",
     "lag_bank_windows_plain",
+    "lag_bank_errors",
     "lag_bank_kernel",
     "K_BLOCK",
 ]
@@ -99,8 +110,11 @@ def lag_bank_kernel(
     ``obs_strides = (channel, re/im, code)``; ``w``: float32 with
     ``W_g[n,l] = w.flat[g*ws_g + off + n*ws_n + l*ws_l]`` for
     ``w_layout = (ws_g, ws_n, ws_l, off, extent)`` (reads outside
-    ``[0, extent)`` of a channel's row count as zero).  Returns power,
-    phase, re, im, each (G, P, NL) float32.
+    ``[0, extent)`` of a channel's row count as zero).  The window layout
+    ``ws_n = 1, ws_l = -1`` takes the tensor-core kernel, which needs a
+    16-byte-aligned ``obs`` and strides and K that are multiples of 4 (the
+    launch fails otherwise).  Returns power, phase, re, im, each
+    (G, P, NL) float32.
     """
     if obs.device.type != "cuda" or w.device.type != "cuda":
         raise ValueError("lag_bank_kernel needs CUDA tensors")
@@ -189,6 +203,19 @@ def lag_bank_windows_plain(
     return power, phase, re, im
 
 
+def lag_bank_errors(out, ref) -> tuple[float, float]:
+    """Errors of a lag bank's ``(power, phase, ...)`` against a reference
+    result, in float64: the largest power error over its row's maximum,
+    and the largest phase error in cycles wherever the reference power is
+    at least 1e-3 x the row maximum."""
+    pk, phk = out[0].double(), out[1].double()
+    pp, php = ref[0].double(), ref[1].double()
+    rowmax = pp.amax(-1, keepdim=True)
+    dph = (torch.remainder(phk - php + 0.5, 1.0) - 0.5).abs()
+    return (float(((pk - pp).abs() / rowmax).max()),
+            float(dph[pp >= 1e-3 * rowmax].max()))
+
+
 def lag_bank_windows(
     obs: torch.Tensor, wav_ext: torch.Tensor, nlag: int,
     power_scale: float = 0.5,
@@ -210,10 +237,16 @@ def lag_bank_windows(
     if obs.device.type == "cpu":
         return lag_bank_windows_plain(obs, wav_ext, nlag, power_scale)
     obs = obs.contiguous()
+    pad = -K % 4
+    if pad or obs.data_ptr() % 16:
+        # the kernel's bulk copies take whole, 16-byte-aligned float4 rows;
+        # zero samples past K add nothing to the sums
+        obs = torch.nn.functional.pad(obs, (0, pad)) if pad else obs.clone()
+    K4 = K + pad
     w = wav_ext.contiguous()
     return lag_bank_kernel(
-        obs, w, G=G, P=P, K=K, NL=2 * nlag + 1,
-        obs_strides=(2 * P * K, P * K, K),
+        obs, w, G=G, P=P, K=K4, NL=2 * nlag + 1,
+        obs_strides=(2 * P * K4, P * K4, K4),
         w_layout=(E, 1, -1, 2 * nlag, E),
         power_scale=power_scale,
     )

@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "compile_all", "load"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -58,11 +58,18 @@ def build_all(names=None, force: bool = False) -> dict[str, str]:
     todo = [n for n in names if force or _stale(n)]
     if not todo:
         return {n: "up to date" for n in names}
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    return compile_all({n: _paths(n) for n in todo})
+
+
+def compile_all(jobs: dict[str, tuple[str, str]]) -> dict[str, str]:
+    """Compile each ``name -> (source path, library path)`` for ``sm_90a``,
+    one ``nvcc`` process per source, started together.  Returns name ->
+    the compiler's ``-Xptxas -v`` report; raises with the compiler's
+    output if any build fails."""
     nvcc = _nvcc()
     procs = {}
-    for n in todo:
-        src, lib = _paths(n)
+    for n, (src, lib) in jobs.items():
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
         tmp = f"{lib}.tmp{os.getpid()}"
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -24,9 +24,15 @@ result line) on any error:
    within a quarter sample, and that the lag-bank kernel launched;
 5. holds the kernel against its plain PyTorch version at the production
    group shape (power within 1e-4 of each row's maximum; phase within
-   1e-4 cycles wherever power >= 1e-3 x the row maximum);
+   1e-4 cycles wherever power >= 1e-3 x the row maximum), in both input
+   forms; holds the window form against the plain version in float64
+   (its power and phase errors may each be at most 4x those of the
+   float32 plain version against the same float64 result); and checks
+   that two launches give the same bits;
 6. times the kernel, its plain version and ``torch.matmul`` of the same
-   contraction with CUDA events, and works out the card's bound.
+   contraction with CUDA events, and the kernel at K = 257 and 2000 as
+   well, and works out the card's bounds (bytes, 3xTF32 and fp32
+   operations).
 
 It prints the card's name and power limit (``nvidia-smi``), one
 ``{"kernels": [...]}`` line, and as its last line
@@ -61,7 +67,9 @@ NOISE_SIGMA = 300.0  # per I/Q component
 MAX_FRAC = 0.3  # largest fractional part of an injected delay, samples
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
+F64_GATE = 4.0  # kernel error vs float64 at most this x the fp32 plain's
 
 
 def log(msg: str) -> None:
@@ -269,27 +277,42 @@ def check_kernel(lb_inputs: dict):
     """The lag-bank kernel against its plain version on the main path's
     last launch inputs — (G, 2, P, K) downconverted codes and the group's
     replica extensions, the production group shape — in the bank's window
-    form, then in the explicit (K, NL) form of ``lag_bank_correlate`` (the
-    kernel's other staging path) on the group's first channel.  Returns
-    the window form's errors and the explicit lag matrices."""
+    form (in float32, in float64, and launch against launch for the same
+    bits), then in the explicit (K, NL) form of ``lag_bank_correlate``
+    (the kernel's other path) on the group's first channel.  Returns the
+    window form's errors, its float64 errors and the plain version's, and
+    the explicit lag matrices."""
     from amaranth_twstft_tpu_torch.ops import lagbank
 
     obs, wav_ext = lb_inputs["obs"], lb_inputs["wav_ext"]
     nlag, scale = lb_inputs["nlag"], lb_inputs["power_scale"]
     G, _, P, nobs = obs.shape
     nl = 2 * nlag + 1
+    kern = lagbank.lag_bank_windows(obs, wav_ext, nlag, scale)
+    again = lagbank.lag_bank_windows(obs, wav_ext, nlag, scale)
+    if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+        raise RuntimeError("two launches of the lag-bank kernel differ")
+    log("kernel determinism: two launches give the same bits")
+    plain = lagbank.lag_bank_windows_plain(obs, wav_ext, nlag, scale)
     errs = compare_lag_banks(
-        f"window form at (G, P, K, NL) = ({G}, {P}, {nobs}, {nl})",
-        lagbank.lag_bank_windows(obs, wav_ext, nlag, scale),
-        lagbank.lag_bank_windows_plain(obs, wav_ext, nlag, scale),
-    )
+        f"window form at (G, P, K, NL) = ({G}, {P}, {nobs}, {nl})", kern, plain)
+    ref64 = lagbank.lag_bank_windows_plain(obs.double(), wav_ext.double(),
+                                           nlag, scale)
+    kern64 = lagbank.lag_bank_errors(kern, ref64)
+    plain64 = lagbank.lag_bank_errors(plain, ref64)
+    log(f"against float64: kernel power err / row max {kern64[0]:.3e}, phase "
+        f"err {kern64[1]:.3e} cycles; fp32 plain {plain64[0]:.3e}, "
+        f"{plain64[1]:.3e} cycles (gate: kernel <= {F64_GATE:g} x plain)")
+    if kern64[0] > F64_GATE * plain64[0] or kern64[1] > F64_GATE * plain64[1]:
+        raise RuntimeError("lag-bank kernel fails the float64 gate")
+    del ref64, again
     w_mat = wav_ext.unfold(-1, nobs, 1).flip(-2).transpose(-1, -2).contiguous()
     compare_lag_banks(
         f"explicit form at (C, K, NL) = ({P}, {nobs}, {nl})",
         lagbank.lag_bank_correlate(obs[0], w_mat[0]),
         lagbank.lag_bank_plain(obs[0], w_mat[0]),
     )
-    return (*errs, w_mat)
+    return errs, kern64, plain64, w_mat
 
 
 def check_truths(reports: dict, truths: dict) -> tuple[int, int, float, float]:
@@ -389,7 +412,7 @@ def main() -> int:
 
     # -- 5. kernel vs plain on the main path's inputs ----------------------
     lagbank.lag_bank_kernel.launches = 0  # the checks below are not the main path
-    abs_err, pow_err, ph_err, w_mat = check_kernel(lb_inputs)
+    (abs_err, pow_err, ph_err), kern64, plain64, w_mat = check_kernel(lb_inputs)
     obs, wav_ext = lb_inputs["obs"], lb_inputs["wav_ext"]
     nlag, scale = lb_inputs["nlag"], lb_inputs["power_scale"]
     G, _, P, nobs = obs.shape
@@ -401,15 +424,29 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: lagbank.lag_bank_windows_plain(obs, wav_ext, nlag, scale), 5)
     library_ms = cuda_ms(lambda: torch.matmul(obs2, w_mat), 10)
     ms2 = cuda_ms(lambda: lagbank.lag_bank_windows(obs, wav_ext, nlag, scale), 20)
+    # the function's operations (57 lags, not the kernel's 64) and bytes:
+    # obs and the replica read once, four outputs written once
     flops = 2.0 * 2 * G * P * nl * nobs
     nbytes = 4.0 * (obs.numel() + wav_ext.numel() + 4 * G * P * nl)
-    bound_ms = 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S)
-    bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
+    bound_bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    bound_tf32x3_ms = 1e3 * 3 * flops / PEAK_TF32_FLOPS
+    bound_fp32_ms = 1e3 * flops / PEAK_FP32_FLOPS
+    bound_ms = max(bound_bytes_ms, bound_tf32x3_ms)
+    bound_by = "operations" if bound_tf32x3_ms >= bound_bytes_ms else "bytes"
     kernel_ms = min(ms, ms2)
-    log(f"lagbank per group of {G}: kernel {ms:.4f} / {ms2:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}; {flops:.3e} FLOP, {nbytes:.3e} B); "
-        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s")
+    log(f"lagbank per group of {G}: kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+        f"{library_ms:.4f} ms; bounds: bytes {bound_bytes_ms:.4f} ms "
+        f"({nbytes:.3e} B), 3xTF32 {bound_tf32x3_ms:.4f} ms, fp32 FMA "
+        f"{bound_fp32_ms:.4f} ms ({flops:.3e} FLOP); "
+        f"{flops / kernel_ms / 1e9:.2f} TFLOP/s of the function, "
+        f"{nbytes / kernel_ms / 1e6:.1f} GB/s")
+    short_ms = {}
+    for k in (257, 2000):
+        o = obs[..., :k].contiguous()
+        w = wav_ext[:, : k + 2 * nlag].contiguous()
+        short_ms[k] = cuda_ms(lambda: lagbank.lag_bank_windows(o, w, nlag, scale), 50)
+    log(f"lagbank per group of {G} at K = 257: {short_ms[257]:.4f} ms, "
+        f"K = 2000: {short_ms[2000]:.4f} ms")
     groups = math.ceil(n_chan / G)
     log(f"per tracked second of {n_chan} channels: {groups} launches, kernel "
         f"{groups * kernel_ms:.3f} ms, bound {groups * bound_ms:.3f} ms; bank "
@@ -432,7 +469,14 @@ def main() -> int:
         "max_abs_err": abs_err,
         "max_err_over_row_max": pow_err,
         "max_phase_err_cycles": ph_err,
+        "f64_err": kern64[0],
+        "f64_phase_err_cycles": kern64[1],
+        "plain_f64_err": plain64[0],
+        "plain_f64_phase_err_cycles": plain64[1],
+        "deterministic": True,
         "ms": kernel_ms,
+        "ms_k257": short_ms[257],
+        "ms_k2000": short_ms[2000],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,

@@ -60,6 +60,69 @@ def test_kernel_matches_plain_on_card(cuda):
     torch.cuda.synchronize()
 
 
+# the window form's compensated 3xTF32 products against float64: within
+# 1e-5 of the row maximum (10x inside the kernel-vs-plain tolerance; one
+# tf32 pass gives ~1e-3), and at the production group shape within 4x of
+# the float32 plain version's own error (chip_smoke.py's gate)
+F64_TOL = 1e-5
+F64_GATE = 4.0
+
+
+@pytest.mark.parametrize("g,p,k,nlag", [
+    (8, 24, 200_000, 28),  # the production group shape
+    (1, 5, 257, 2),        # K % 4 != 0: zero-padded copy; 10 of 48 rows
+    (2, 7, 4099, 40),      # 81 lags: two lag blocks
+    (3, 49, 2000, 8),      # 98 rows: three row blocks
+])
+def test_window_kernel_float64_accuracy(cuda, g, p, k, nlag):
+    gen = torch.Generator().manual_seed(k + nlag)
+    obs = torch.randn(g, 2, p, k, generator=gen).to(cuda)
+    wav_ext = torch.randn(g, k + 2 * nlag, generator=gen).to(cuda)
+    ref64 = tlb.lag_bank_windows_plain(obs.double(), wav_ext.double(), nlag)
+    kern = tlb.lag_bank_errors(tlb.lag_bank_windows(obs, wav_ext, nlag), ref64)
+    plain = tlb.lag_bank_errors(tlb.lag_bank_windows_plain(obs, wav_ext, nlag), ref64)
+    assert kern[0] < F64_TOL and kern[1] < F64_TOL, (kern, plain)
+    if (g, p, k, nlag) == (8, 24, 200_000, 28):
+        assert kern[0] <= F64_GATE * plain[0] and kern[1] <= F64_GATE * plain[1]
+
+
+def test_window_kernel_is_deterministic(cuda):
+    """No atomics: two launches on the same inputs give the same bits."""
+    gen = torch.Generator().manual_seed(3)
+    for g, p, k, nlag in [(8, 24, 200_000, 28), (1, 5, 257, 2)]:
+        obs = torch.randn(g, 2, p, k, generator=gen).to(cuda)
+        wav_ext = torch.randn(g, k + 2 * nlag, generator=gen).to(cuda)
+        first = tlb.lag_bank_windows(obs, wav_ext, nlag)
+        second = tlb.lag_bank_windows(obs, wav_ext, nlag)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_padded_lags_and_rows_contribute_nothing(cuda):
+    """An exact-zero obs code gives exactly zero re, im and power; the
+    other codes, the rows past 2P in the block and the lags past NL in
+    the last m16 tile leave the results NaN-free and equal to the plain
+    version's; a view whose data is not 16-byte aligned is copied."""
+    gen = torch.Generator().manual_seed(11)
+    g, p, k, nlag = 2, 5, 1000, 8
+    obs = torch.randn(g, 2, p, k, generator=gen).to(cuda)
+    obs[1, :, 3] = 0.0
+    wav_ext = torch.randn(g, k + 2 * nlag, generator=gen).to(cuda)
+    power, phase, re, im = tlb.lag_bank_windows(obs, wav_ext, nlag)
+    for t in (power, phase, re, im):
+        assert bool(torch.isfinite(t).all())
+    for t in (power[1, 3], re[1, 3], im[1, 3]):
+        assert bool((t == 0).all())
+    keep = [0, 1, 2, 4]  # the zero code has no row maximum to compare to
+    plain = tlb.lag_bank_windows_plain(obs, wav_ext, nlag)
+    _close((power[:, keep], phase[:, keep]), (plain[0][:, keep], plain[1][:, keep]))
+    flat = torch.randn(obs.numel() + 1, generator=gen).to(cuda)
+    view = flat[1:].view(g, 2, p, k)
+    assert view.data_ptr() % 16 != 0
+    _close(tlb.lag_bank_windows(view, wav_ext, nlag),
+           tlb.lag_bank_windows_plain(view, wav_ext, nlag))
+
+
 def test_bank_on_card_matches_cpu(cuda):
     """Four seconds of the banked receiver on the card against the same
     receiver on the CPU (plain lag bank): same log lines and lock counts,

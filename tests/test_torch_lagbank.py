@@ -93,3 +93,79 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         )
     tlb.lag_bank_windows(obs, wav_ext, 2)
     assert tlb.lag_bank_kernel.launches == before
+
+
+# -- the window kernel's compensated 3xTF32 arithmetic, emulated ------------
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest tf32 value (ties away from zero, as
+    ``cvt.rna.tf32.f32``): add half of the 13 dropped bits, clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _lag_bank_tf32(obs, wav_ext, nlag, passes):
+    """The window kernel's products in plain torch: both operands split
+    into tf32 parts, products of tf32 values (exact in float32) summed in
+    float32 — ``small*big + big*small + big*big`` with ``passes=3``, only
+    ``big*big`` (one TF32 pass) with ``passes=1``.  Returns power (scale
+    0.5) and phase as ``lag_bank_windows`` does."""
+    K = obs.shape[-1]
+    win = wav_ext.unfold(-1, K, 1)  # (G, NL, K): lag 2*nlag - s
+    ob, osm = _split_tf32(obs)
+    wb, wsm = _split_tf32(win)
+    terms = [(ob, wb)] if passes == 1 else [(osm, wb), (ob, wsm), (ob, wb)]
+    re = sum(torch.einsum("gpn,gsn->gps", o[:, 0], w) for o, w in terms).flip(-1)
+    im = sum(torch.einsum("gpn,gsn->gps", o[:, 1], w) for o, w in terms).flip(-1)
+    return 0.5 * (re * re + im * im), torch.atan2(-im, re) / (2 * np.pi)
+
+
+def test_tf32_split_parts():
+    """tf32 parts have 13 zero low bits, round to nearest, and big + small
+    carries x to about 2^-22 of |x| (a one-part tf32 keeps 2^-11)."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(
+        (rng.normal(size=4096) * 10.0 ** rng.uniform(-6, 6, 4096)).astype(np.float32)
+    )
+    big, small = _split_tf32(x)
+    for part in (big, small):
+        assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
+    x64 = x.double()
+    assert float(((x64 - big.double()).abs() / x64.abs()).max()) <= 2.0 ** -11
+    err = (x64 - big.double() - small.double()).abs() / x64.abs()
+    assert float(err.max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("g,p,k,nlag", [(1, 5, 257, 2), (3, 7, 1000, 8), (2, 24, 2000, 28)])
+def test_tf32x3_split_holds_fp32_tolerances(g, p, k, nlag):
+    """The 3xTF32 split against float64, the float32 plain version and the
+    JAX package's dots, within this file's tolerances; one TF32 pass
+    fails the same bar (PARITY deviation 12)."""
+    rng = np.random.default_rng(k + nlag)
+    obs = rng.normal(size=(g, 2, p, k)).astype(np.float32)
+    wav_ext = rng.normal(size=(g, k + 2 * nlag)).astype(np.float32)
+    obs_t, wav_t = torch.from_numpy(obs), torch.from_numpy(wav_ext)
+    pw3, ph3 = _lag_bank_tf32(obs_t, wav_t, nlag, passes=3)
+    pw1, ph1 = _lag_bank_tf32(obs_t, wav_t, nlag, passes=1)
+    pw32, ph32, _, _ = tlb.lag_bank_windows(obs_t, wav_t, nlag)
+    # float64 and the JAX package's dots on the explicit lag matrix
+    # W[n, l] = wav_ext[2*nlag - l + n]
+    idx = 2 * nlag - np.arange(2 * nlag + 1)[None, :] + np.arange(k)[:, None]
+    W = wav_ext[:, idx]  # (g, K, NL)
+    re64 = np.einsum("gpn,gnl->gpl", obs[:, 0].astype(np.float64), W)
+    im64 = np.einsum("gpn,gnl->gpl", obs[:, 1].astype(np.float64), W)
+    jax_out = [_lag_bank_jnp(jnp.asarray(obs[i]), jnp.asarray(W[i])) for i in range(g)]
+    refs = {
+        "float64": (0.5 * (re64**2 + im64**2), np.arctan2(-im64, re64) / (2 * np.pi)),
+        "float32 plain": (pw32.numpy(), ph32.numpy()),
+        "jax": tuple(np.stack([np.asarray(o[j]) for o in jax_out]) for j in (0, 1)),
+    }
+    for name, (ref_pw, ref_ph) in refs.items():
+        np.testing.assert_allclose(pw3.numpy(), ref_pw, rtol=POWER_RTOL, err_msg=name)
+        assert _phase_diff(ph3.numpy(), ref_ph).max() < PHASE_ATOL, name
+    ref_pw, ref_ph = refs["float64"]
+    one_pass_err = np.abs(pw1.numpy() / ref_pw - 1).max()
+    assert one_pass_err > 2 * POWER_RTOL or _phase_diff(ph1.numpy(), ref_ph).max() > PHASE_ATOL
