@@ -3,10 +3,15 @@
 Ported verbs so far:
 
 - ``dllpll`` — the DLL/PLL multi-channel receiver (``rxcomplex.cpp
-  data.bin`` with ``sdr.param``), through the device-banked receiver.
+  data.bin`` with ``sdr.param``), through the device-banked receiver;
+- ``ranging`` — the archived dual-channel chain (``godual_ranging.m``);
+- ``goranging`` — the C++ batch chain (``processing/CPP/main.cpp``:
+  ``GoRanging data.bin code.bin [remote] [foffset]``); ``--fast`` runs
+  the IO-overlapped pipeline.
 
-It runs on the card unless ``--device cpu`` is given.  ``--host`` (the
-host-sequential receiver) and ``--serve`` (the TCP monitor) are not
+Every verb runs on the card unless ``--device cpu`` is given.  ``dllpll
+--host`` (the host-sequential receiver), ``dllpll --serve`` (the TCP
+monitor), ``goranging --sharded`` and ``goranging --profile`` are not
 ported yet and exit with an error.
 """
 
@@ -21,15 +26,73 @@ import time
 import numpy as np
 
 
+def _add_device_arg(p) -> None:
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' runs the "
+                        "kernels' plain versions)")
+
+
+def _add_signal_args(p) -> None:
+    p.add_argument("--fs", type=float, default=5e6)
+    p.add_argument("--chip-rate", type=float, default=2.5e6)
+    p.add_argument("--code-len", type=int, default=100_000)
+    p.add_argument("--bitlen", type=int, default=17)
+    p.add_argument("--taps", type=int, default=9)
+
+
+def _signal(args):
+    from amaranth_twstft_tpu_torch.config import SignalConfig
+
+    return SignalConfig(fs=args.fs, chip_rate=args.chip_rate,
+                        code_len=args.code_len, bit_len=args.bitlen,
+                        taps=args.taps)
+
+
+def _ranging_parsers(sub) -> None:
+    p = sub.add_parser("ranging", help="archived dual-channel chain")
+    p.add_argument("capture")
+    p.add_argument("code")
+    _add_signal_args(p)
+    p.add_argument("--remote", action="store_true")
+    p.add_argument("--op", action="store_true", help="OP station (vs LTFB)")
+    p.add_argument("--f64", action="store_true")
+    p.add_argument("-v", "--verbose", action="store_true")
+    _add_device_arg(p)
+
+    p = sub.add_parser("goranging", help="C++-chain semantics (fixed df)")
+    p.add_argument("capture")
+    p.add_argument("code")
+    _add_signal_args(p)
+    p.add_argument("--remote", action="store_true")
+    p.add_argument("--foffset", type=float, default=0.0)
+    p.add_argument("--f64", action="store_true",
+                   help="complex128 (without --fast)")
+    p.add_argument("--fast", action="store_true",
+                   help="IO-overlapped pipeline (raw sc16 ingest on the "
+                        "card, one dual-channel step per batch)")
+    p.add_argument("--sharded", action="store_true",
+                   help="multi-device pipeline (not ported yet)")
+    p.add_argument("--batch-epochs", type=int, default=None,
+                   help="epochs per channel per batch")
+    p.add_argument("--parity-ns", type=float, default=None,
+                   help="delay-parity budget vs the float64 oracle; "
+                        ">= 0.08 selects int8 ingest, else int16")
+    p.add_argument("--nint", type=int, default=1,
+                   help="interpolation half-factor (grid = 2*nint+1); 1 "
+                        "matches the reference's 3x grid, 4 cuts the "
+                        "parabola bias (PARITY.md deviation 11)")
+    p.add_argument("--profile", metavar="LOGDIR", default=None,
+                   help="profiler trace of the run (not ported yet)")
+    _add_device_arg(p)
+
+
 def _dllpll_parser(sub) -> None:
     p = sub.add_parser("dllpll", help="DLL/PLL multi-channel receiver")
     p.add_argument("capture")
     p.add_argument("--param", required=True, help="sdr.param channel file")
     p.add_argument("--fs", type=float, default=5e6)
     p.add_argument("--seconds", type=int, default=0, help="0 = whole file")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda; 'cpu' runs the "
-                        "kernels' plain versions)")
+    _add_device_arg(p)
     p.add_argument("--host", action="store_true",
                    help="host-sequential receiver (not ported yet)")
     p.add_argument("--out-dir", default=None,
@@ -68,6 +131,7 @@ def main(argv: list[str] | None = None) -> int:
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
     _dllpll_parser(sub)
+    _ranging_parsers(sub)
     args = parser.parse_args(argv)
     if args.cmd == "dllpll":
         if args.host:
@@ -77,8 +141,78 @@ def main(argv: list[str] | None = None) -> int:
             parser.error("dllpll --serve: the report server is not ported "
                          "yet")
         return _dllpll(args)
+    if args.cmd == "ranging":
+        return _ranging(args)
+    if args.cmd == "goranging":
+        if args.sharded:
+            parser.error("goranging --sharded: the multi-device pipeline is "
+                         "not ported yet")
+        if args.profile:
+            parser.error("goranging --profile: the profiler trace is not "
+                         "ported yet")
+        return _goranging(args)
     parser.error(f"unknown command {args.cmd}")
     return 2
+
+
+def _dtype(args):
+    import torch
+
+    return torch.complex128 if args.f64 else torch.complex64
+
+
+def _ranging(args) -> int:
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, StationConfig
+    from amaranth_twstft_tpu_torch.models import godual
+
+    out = godual.process_file(
+        args.capture, args.code, _signal(args), ProcessingConfig(),
+        StationConfig(op=args.op), remote=args.remote, dtype=_dtype(args),
+        verbose=args.verbose, device=args.device,
+    )
+    print(out["mat_path"])
+    return 0
+
+
+def _goranging(args) -> int:
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig
+
+    proc = ProcessingConfig(hamming_window=True, nint=args.nint)
+    kw = {"batch_epochs": args.batch_epochs} if args.batch_epochs else {}
+    if args.fast:
+        from amaranth_twstft_tpu_torch import pipeline
+
+        ingest = None
+        if args.f64:
+            print(
+                "warning: --fast runs float32 on device; forcing "
+                "ingest_dtype=float32 (full-precision ingest) instead "
+                "of the float64 oracle — drop --fast for true f64",
+                file=sys.stderr,
+            )
+            ingest = "float32"
+        out = pipeline.process_capture_overlapped(
+            args.capture, args.code, _signal(args), proc, remote=args.remote,
+            foffset_hz=args.foffset, ingest_dtype=ingest,
+            parity_ns=args.parity_ns, device=args.device, **kw,
+        )
+        print(f"timing={out['timing']}", file=sys.stderr)
+    else:
+        if args.parity_ns is not None or args.batch_epochs:
+            print(
+                "note: --parity-ns/--batch-epochs apply to the --fast "
+                "pipeline; the plain path reads sc16 at full precision",
+                file=sys.stderr,
+            )
+        from amaranth_twstft_tpu_torch.models import goranging
+
+        out = goranging.process_file(
+            args.capture, args.code, _signal(args), proc, remote=args.remote,
+            foffset_hz=args.foffset, dtype=_dtype(args), device=args.device,
+        )
+    print(f"df1={out['df'][0]:.3f}", file=sys.stderr)
+    print(out["mat_path"])
+    return 0
 
 
 def _dllpll(args) -> int:

@@ -1,18 +1,48 @@
-"""Precise local-oscillator phasors (torch).
+"""FFT-domain helpers (torch): zero-pad spectral interpolation, the
+reference's frequency axis and precise local-oscillator phasors.
 
-The port's counterpart of the JAX package's ``ops/fftutils.mix_phasor``:
-in complex64 the phase ``frac(k*c)`` is formed by the same exact
-2048-split float32 arithmetic (``fftutils.py:72-97``), so the port's
-phasor matches the JAX one to the last few ulps of cos/sin.
+The port's counterpart of the JAX package's ``ops/fftutils.py``.  The
+reference interpolates every correlation peak by zero-padding the middle
+of the product spectrum before the inverse FFT (``godual_ranging.m:26-28``,
+``processing/CPP/main.cpp:289-304``) and does not rescale after padding;
+:func:`spectral_zoom` keeps that.  In complex64 the LO phase
+``frac(k*c)`` is formed by the same exact 2048-split float32 arithmetic
+(``fftutils.py:72-97``), so the port's phasor matches the JAX one to the
+last few ulps of cos/sin.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["mix_phasor"]
+__all__ = ["spectral_zoom", "spectral_zoom_signal", "fftfreq_shifted", "mix_phasor"]
+
+
+def spectral_zoom(spectrum: torch.Tensor, nint: int) -> torch.Tensor:
+    """Zero-pad a natural-order spectrum from L to (2*nint+1)*L along the
+    last axis: bins [0, L/2) stay at the start, [L/2, L) move to the end
+    (``main.cpp:289-294``; for even L the Nyquist bin is negative)."""
+    L = spectrum.shape[-1]
+    half = L // 2
+    zeros = spectrum.new_zeros(spectrum.shape[:-1] + (2 * nint * L,))
+    return torch.cat([spectrum[..., :half], zeros, spectrum[..., half:]], dim=-1)
+
+
+def spectral_zoom_signal(ffty: torch.Tensor, nint: int) -> torch.Tensor:
+    """Interpolated time signal ``ifft(spectral_zoom(ffty))``
+    (``godual_ranging.m:38-41``, ``main.cpp:319-327``)."""
+    return torch.fft.ifft(spectral_zoom(ffty, nint), dim=-1)
+
+
+def fftfreq_shifted(n: int, fs: float) -> np.ndarray:
+    """The reference's frequency axis ``linspace(-fs/2, fs/2, n)``: an
+    INCLUSIVE linspace with step fs/(n-1), not ``fftshift(fftfreq)``
+    (``godual_ranging.m:73``, ``main.cpp:399``); the df estimate is read
+    off it."""
+    return np.linspace(-fs / 2, fs / 2, n)
 
 
 def _mix_phasor_f32(n: int, cycles_per_sample: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,9 @@ __all__ = [
     "prn_chips_batch",
     "is_mseq",
     "find_mseq_taps",
+    "prn_default_filename",
+    "write_prn_file",
+    "read_prn_file",
 ]
 
 
@@ -130,3 +133,44 @@ def find_mseq_taps(
         if len(found) >= limit:
             break
     return found[:limit]
+
+
+# ----------------------------------------------------------------------
+# PRN file IO, byte-compatible with ``write_prn_seq``
+# (``amaranth_twstft/common.py:59-73``): 1 byte per chip, value 0 or 1;
+# QPSK interleaves the A and B streams.
+# ----------------------------------------------------------------------
+def prn_default_filename(bit_len: int, noiselen: int, taps_a: int,
+                         taps_b: int | None = None) -> str:
+    """Reference naming scheme (``amaranth_twstft/common.py:61``)."""
+    suffix = f".{taps_b}q" if taps_b else "b"
+    return f"prn{taps_a}{suffix}psk{bit_len}bits.bin"
+
+
+def write_prn_file(
+    path: str,
+    bit_len: int,
+    noiselen: int,
+    taps_a: int,
+    taps_b: int | None = None,
+    seed: int = 1,
+) -> None:
+    a = prn_chips(bit_len, taps_a, noiselen, seed)
+    if taps_b is None:
+        data = a.astype(np.uint8)
+    else:
+        b = prn_chips(bit_len, taps_b, noiselen, seed)
+        data = np.empty(2 * noiselen, dtype=np.uint8)
+        data[0::2] = a
+        data[1::2] = b
+    with open(path, "wb") as f:
+        f.write(data.tobytes())
+
+
+def read_prn_file(path: str, qpsk: bool = False):
+    """Read a PRN chip file (0/1 bytes) -> int8 array(s), as the chains
+    do (``godual_ranging.m:63``, ``processing/CPP/main.cpp:673``)."""
+    raw = np.fromfile(path, dtype=np.uint8)
+    if not qpsk:
+        return raw.astype(np.int8)
+    return raw[0::2].astype(np.int8), raw[1::2].astype(np.int8)

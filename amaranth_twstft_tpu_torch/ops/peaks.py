@@ -1,7 +1,10 @@
-"""Peak refinement and robust statistics of the DLL/PLL bank (torch).
+"""Peak refinement and robust statistics (torch).
 
 Behavioral specs (as the JAX package's ``ops/peaks.py``):
 
+- 3-point parabolic correction ``(|x-1|-|x+1|) / (|x-1|+|x+1|-2|x0|) / 2``
+  (``processing/Octave/godual_ranging.m:29-33``,
+  ``processing/CPP/main.cpp:305-310``),
 - High-Resolution-Correlator two-parabola discriminator
   (``experiments/231001_DLL_PLL/rxcomplex.cpp:649-659``),
 - median / IQR 3-sigma outlier rejection (``rxcomplex.cpp:699-700``;
@@ -21,6 +24,8 @@ import torch
 
 __all__ = [
     "take_circular",
+    "peak_neighbors",
+    "parabolic_correction",
     "hrc_correction",
     "median_iqr_sigma",
     "weighted_linear_fit",
@@ -31,6 +36,27 @@ def take_circular(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather along the last axis with circular (mod-N) indexing."""
     idx = torch.remainder(idx, x.shape[-1]).to(torch.int64)
     return torch.gather(x, -1, idx.unsqueeze(-1)).squeeze(-1)
+
+
+def peak_neighbors(prnmap: torch.Tensor, indice: torch.Tensor):
+    """(x[-1], x[0], x[+1]) around the peak, circularly
+    (``godual_ranging.m:31-32``; claudio wraps explicitly)."""
+    return (
+        take_circular(prnmap, indice - 1),
+        take_circular(prnmap, indice),
+        take_circular(prnmap, indice + 1),
+    )
+
+
+def parabolic_correction(am1, a0, ap1):
+    """Sub-sample offset of a peak from 3 magnitudes,
+    ``(am1 - ap1) / (am1 + ap1 - 2*a0) / 2`` (``godual_ranging.m:33``);
+    0 where the denominator is 0 (a flat triple), which the reference
+    does not guard."""
+    den = am1 + ap1 - 2.0 * a0
+    num = am1 - ap1
+    safe = torch.where(den == 0, torch.ones_like(den), den)
+    return torch.where(den == 0, torch.zeros_like(den), num / safe / 2.0)
 
 
 def _ratio(a, b, c):

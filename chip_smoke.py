@@ -5,9 +5,9 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's DLL/PLL slice — ``twstft-torch dllpll`` through the
-banked receiver — at production geometry and fails (non-zero exit, no
-result line) on any error:
+It drives two slices of the port at production geometry and fails
+(non-zero exit, no result line) on any error.  The DLL/PLL slice,
+``twstft-torch dllpll`` through the banked receiver:
 
 1. builds every kernel of the slice from ``amaranth_twstft_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a`` (one compiler per source, all together);
@@ -33,6 +33,31 @@ result line) on any error:
    contraction with CUDA events, and the kernel at K = 257 and 2000 as
    well, and works out the card's bounds (bytes, 3xTF32 and fp32
    operations).
+
+The GoRanging slice, ``twstft-torch goranging --fast`` (no hand-written
+kernel: cuFFT, one IEEE-fp32 ``torch.matmul`` and elementwise torch):
+
+7. synthesizes, on the card one second at a time, a 20 s dual-channel
+   capture at 5 MS/s (500 epochs of the 100 000-chip 17-bit code per
+   channel, L = 200 000, 800 MB of sc16) with delays with fractional parts, Dopplers
+   within +-3 kHz and noise drawn from ``--seed``, and writes the code
+   with the port's ``write_prn_file``;
+8. runs the CLI in-process twice (``ProcessingConfig(hamming_window=True)``,
+   nint = 1, 50 epochs per channel per batch, raw int16 ingest) and checks
+   each channel's median delay within 0.01 sample and its df within 1 Hz
+   of the truth;
+9. holds the overlapped pipeline against ``goranging.process_file`` on the
+   card (indice identical, correction within 1e-4 sample), float32 ingest
+   against int16 (the same bits), and the card's first batch against the
+   port on the CPU (indice identical, correction within 1e-4 sample,
+   snr within 1e-3 relative); runs the int8 ladder once and prints its
+   largest delay difference from int16 in ps;
+10. prints the end-to-end IQ MS/s over both channels, the pipeline's
+    ``timing``, the card's busy share over a traced run, the per-file
+    set-up, the ranging step's time per batch of 2 x 50 epochs (CUDA
+    events), a ``torch.profiler`` table of its device ops, and the device
+    time and ops per call of the functions a later PR will write as
+    kernels.
 
 It prints the card's name and power limit (``nvidia-smi``), one
 ``{"kernels": [...]}`` line, and as its last line
@@ -70,6 +95,12 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 F64_GATE = 4.0  # kernel error vs float64 at most this x the fp32 plain's
+GR_SECONDS = 20  # GoRanging capture length (depth is the only cut)
+GR_BATCH = 50  # epochs per channel per batch
+GR_AMPLITUDE = 1000.0  # int16 units
+GR_NOISE = 300.0  # per I/Q component
+GR_DELAY_TOL = 0.01  # samples
+GR_DF_TOL = 1.0  # Hz
 
 
 def log(msg: str) -> None:
@@ -336,6 +367,313 @@ def check_truths(reports: dict, truths: dict) -> tuple[int, int, float, float]:
     return locked, ok, worst_df, worst_gd
 
 
+def synthesize_ranging(dev, seed: int, code_path: str, path: str) -> dict:
+    """Write the GoRanging capture: channel c carries the code delayed by
+    ``delays[c]`` samples (circularly, by an FFT phase ramp, as
+    ``models/emitter`` does), at ``dopplers[c]`` Hz, plus noise; built on
+    the card one second at a time.  Returns the truths."""
+    from amaranth_twstft_tpu_torch.ops.lfsr import read_prn_file
+
+    L = CODE_LEN * int(FS // CHIP_RATE)
+    rng = np.random.default_rng(seed)
+    delays = rng.integers(1000, L - 1000, 2) + rng.uniform(0.05, 0.95, 2)
+    dops = rng.uniform(-3000.0, 3000.0, 2)
+    phases = rng.uniform(0.0, 1.0, 2)
+    code = torch.from_numpy(
+        np.repeat(read_prn_file(code_path).astype(np.float64) * 2 - 1, 2)).to(dev)
+    k = torch.fft.fftfreq(L, device=dev, dtype=torch.float64)
+    ramp = torch.exp(-2j * math.pi * k[None] * torch.from_numpy(delays).to(dev)[:, None])
+    waves = torch.fft.ifft(torch.fft.fft(code)[None] * ramp, dim=-1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fs = int(FS)
+    t = torch.arange(fs, device=dev, dtype=torch.float64)
+    frame = torch.empty((fs, 4), dtype=torch.int16, device=dev)
+    with open(path, "wb") as f:
+        for s0 in range(0, GR_SECONDS * fs, fs):
+            tt = t + s0
+            idx = torch.remainder(tt.long(), L)
+            for c in range(2):
+                ph = torch.remainder(dops[c] * tt / FS + phases[c], 1.0)
+                sig = GR_AMPLITUDE * waves[c, idx] * torch.exp(2j * math.pi * ph)
+                noise = torch.randn(2, fs, generator=gen, device=dev,
+                                    dtype=torch.float64) * GR_NOISE
+                iq = torch.stack([sig.real + noise[0], sig.imag + noise[1]], dim=-1)
+                frame[:, 2 * c : 2 * c + 2] = torch.clamp(
+                    torch.round(iq), -32768, 32767).to(torch.int16)
+            f.write(frame.cpu().numpy().tobytes())
+    return {"delay": delays, "doppler": dops}
+
+
+def run_goranging_cli(cap: str, code: str, out_mat: str, dev):
+    """The main path: ``twstft-torch goranging --fast`` in-process.
+    Returns the pipeline's output dict and the call's wall time."""
+    from amaranth_twstft_tpu_torch import cli, pipeline
+
+    kept = {}
+    orig = pipeline.process_capture_overlapped
+
+    def keep(*a, **kw):
+        kw["out_mat"] = out_mat
+        kept["out"] = orig(*a, **kw)
+        return kept["out"]
+
+    pipeline.process_capture_overlapped = keep
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["goranging", cap, code, "--fast", "--device", str(dev),
+                           "--batch-epochs", str(GR_BATCH)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline.process_capture_overlapped = orig
+    if rc != 0:
+        raise RuntimeError(f"goranging exited {rc}")
+    return kept["out"], wall
+
+
+def delays_samples(ch: dict) -> np.ndarray:
+    return (ch["indice"].astype(np.float64) + ch["correction"]) / 3.0
+
+
+def traced(fn, reps: int):
+    """Run ``fn`` ``reps`` times under ``torch.profiler``; returns the
+    profile, its device events and the wall seconds of the runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    return prof, dev_events, wall
+
+
+def busy_ms(dev_events) -> float:
+    """Union of the device events' time ranges, ms (events on two streams
+    that overlap count once)."""
+    total = 0.0
+    end = -math.inf
+    for e in sorted(dev_events, key=lambda e: e.time_range.start):
+        s0, s1 = e.time_range.start, e.time_range.end
+        if s1 > end:
+            total += s1 - max(s0, end)
+            end = s1
+    return total / 1e3
+
+
+def profile_device(fn, reps: int = 5):
+    """Device time (ms) and device ops per call of ``fn`` from
+    ``torch.profiler`` over ``reps`` calls, and the key_averages table;
+    (None, None, table) when the trace holds no device events."""
+    fn()
+    torch.cuda.synchronize()
+    prof, dev_events, _ = traced(fn, reps)
+    try:
+        table = prof.key_averages().table(sort_by="device_time_total", row_limit=14)
+    except (AttributeError, KeyError, ValueError):
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=14)
+    if not dev_events:
+        return None, None, table
+    total_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    return total_us / 1e3 / reps, len(dev_events) / reps, table
+
+
+def goranging_phase(work: str, dev, seed: int) -> dict:
+    """Steps 7-10; returns the numbers of the ``{"goranging": ...}`` line."""
+    from amaranth_twstft_tpu_torch import pipeline
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, SignalConfig
+    from amaranth_twstft_tpu_torch.models import goranging
+    from amaranth_twstft_tpu_torch.models.godual import build_replica
+    from amaranth_twstft_tpu_torch.ops import boundary, doppler, fftutils, zoomdft
+    from amaranth_twstft_tpu_torch.ops.correlator import DEFAULT_FINE_WIDTH
+    from amaranth_twstft_tpu_torch.ops.lfsr import write_prn_file
+    from amaranth_twstft_tpu_torch.utils import io as sc16
+
+    cfg = SignalConfig()  # 5 MS/s, 2.5 Mchip/s, 100 000-chip 17-bit code
+    proc = ProcessingConfig(hamming_window=True)
+    L = cfg.samples_per_code
+    code = os.path.join(work, "code.bin")
+    cap = os.path.join(work, "ranging.bin")
+    t0 = time.perf_counter()
+    write_prn_file(code, cfg.bit_len, cfg.code_len, cfg.taps)
+    truth = synthesize_ranging(dev, seed, code, cap)
+    log(f"goranging capture: {GR_SECONDS} s x 2 channels, "
+        f"{os.path.getsize(cap) / 1e6:.0f} MB in {time.perf_counter() - t0:.1f} s; "
+        f"truth delays {truth['delay']} samples, Dopplers {truth['doppler']} Hz")
+
+    # -- 8. the main path, cold then warm ---------------------------------
+    runs = [run_goranging_cli(cap, code, os.path.join(work, f"fast{i}C.mat"), dev)
+            for i in range(2)]
+    out, wall = runs[1]
+    iq_samples = GR_SECONDS * cfg.fs * 2  # both channels (bench.py:424)
+    msps = iq_samples / wall / 1e6
+    log(f"goranging --fast: wall {runs[0][1]:.3f} s cold, {wall:.3f} s warm -> "
+        f"{msps:.2f} IQ MS/s end to end over both channels "
+        f"({runs[0][0]['timing']['n_batches']} batches of 2 x {GR_BATCH} epochs)")
+    log(f"  timing (warm): {json.dumps(out['timing'])}")
+    log(f"  timing (cold): {json.dumps(runs[0][0]['timing'])}")
+    errs = []
+    for c, ch in enumerate(("ch1", "ch2")):
+        dl = delays_samples(out[ch])
+        if len(dl) != GR_SECONDS * round(cfg.codes_per_second):
+            raise RuntimeError(f"{ch}: {len(dl)} epochs")
+        d_err = float(np.median(dl) - truth["delay"][c])
+        f_err = float(out["df"][c] - truth["doppler"][c])
+        errs.append((d_err, f_err))
+        log(f"  {ch}: median delay err {d_err:+.5f} sample (p-p over epochs "
+            f"{np.ptp(dl):.4f}), df {out['df'][c]:.4f} Hz (err {f_err:+.4f} Hz)")
+        if abs(d_err) > GR_DELAY_TOL or abs(f_err) > GR_DF_TOL:
+            raise RuntimeError(f"goranging truth check failed on {ch}")
+    for ch in ("ch1", "ch2"):
+        for k in out[ch]:
+            if not np.array_equal(out[ch][k], runs[0][0][ch][k]):
+                raise RuntimeError(f"two goranging runs differ ({ch} {k})")
+    # the card's busy share over a third, traced run (the union of its
+    # device events over the traced wall; the trace itself slows the host)
+    _, dev_events, traced_wall = traced(
+        lambda: run_goranging_cli(cap, code, os.path.join(work, "tracedC.mat"), dev), 1)
+    busy = busy_ms(dev_events) if dev_events else None
+    log(f"  traced run: wall {traced_wall:.3f} s, device busy "
+        f"{busy} ms ({len(dev_events)} device ops)"
+        + (f" -> busy share {busy / 1e3 / traced_wall:.4f}, of the untraced warm "
+           f"wall {busy / 1e3 / wall:.4f}" if busy else ""))
+
+    # -- 9. against process_file, float32 ingest and the CPU --------------
+    t0 = time.perf_counter()
+    base = goranging.process_file(cap, code, cfg, proc, batch_epochs=GR_BATCH,
+                                  out_mat=os.path.join(work, "baseC.mat"), device=dev)
+    t_base = time.perf_counter() - t0
+    worst_pf = 0.0
+    for ch in ("ch1", "ch2"):
+        if not np.array_equal(out[ch]["indice"], base[ch]["indice"]):
+            raise RuntimeError(f"pipeline vs process_file: indice differs ({ch})")
+        worst_pf = max(worst_pf, float(np.abs(out[ch]["correction"]
+                                              - base[ch]["correction"]).max()))
+    if worst_pf > 1e-4 or out["df"] != base["df"]:
+        raise RuntimeError(f"pipeline vs process_file: correction {worst_pf}")
+    log(f"pipeline vs goranging.process_file on the card ({t_base:.2f} s): indice "
+        f"identical, max correction diff {worst_pf:.2e} sample, df equal")
+    kw = dict(batch_epochs=GR_BATCH, device=dev)
+    o32 = pipeline.process_capture_overlapped(
+        cap, code, cfg, proc, ingest_dtype="float32",
+        out_mat=os.path.join(work, "f32C.mat"), **kw)
+    for ch in ("ch1", "ch2"):
+        for k in out[ch]:
+            if not np.array_equal(out[ch][k], o32[ch][k]):
+                raise RuntimeError(f"int16 vs float32 ingest differ ({ch} {k})")
+    log(f"int16 ingest vs float32 ingest: the same bits "
+        f"(float32 run {o32['timing']['total_s']:.3f} s)")
+    o8 = pipeline.process_capture_overlapped(
+        cap, code, cfg, proc, parity_ns=0.1,
+        out_mat=os.path.join(work, "q8C.mat"), **kw)
+    ps = max(float(np.abs(delays_samples(o8[ch]) - delays_samples(out[ch])).max())
+             for ch in ("ch1", "ch2")) / cfg.fs * 1e12
+    log(f"int8 ladder (parity_ns=0.1): max |delay - int16 delay| {ps:.2f} ps "
+        f"(run {o8['timing']['total_s']:.3f} s)")
+
+    t0 = time.perf_counter()
+    rep = build_replica(code, cfg, proc)
+    t_rep = time.perf_counter() - t0
+    iq, n = sc16.read_sc16_epochs_raw16(cap, 0, GR_BATCH, L)
+    dfv = np.repeat(np.asarray(out["df"], np.float32), GR_BATCH)
+    cpu_step = boundary.make_ranging_step(rep.fcode, rep.code_interp, np.ones(L, bool),
+                                          cfg.fs, packed=True, device="cpu")
+    t0 = time.perf_counter()
+    cpu_rows = boundary.to_epoch_result(boundary.unpack_outputs(
+        cpu_step(torch.from_numpy(iq), df_fixed=torch.from_numpy(dfv)).numpy()))
+    t_cpu = time.perf_counter() - t0
+    worst_cpu = 0.0
+    for c, ch in enumerate(("ch1", "ch2")):
+        sl = slice(c * GR_BATCH, (c + 1) * GR_BATCH)
+        card = {k: v[:GR_BATCH] for k, v in out[ch].items()}
+        if not np.array_equal(card["indice"], cpu_rows.indice[sl]):
+            raise RuntimeError(f"card vs CPU first batch: indice differs ({ch})")
+        worst_cpu = max(worst_cpu, float(np.abs(card["correction"]
+                                                - cpu_rows.correction[sl]).max()))
+        for f in ("snr_r", "snr_i"):
+            rel = np.abs(card[f] - getattr(cpu_rows, f)[sl]) / (
+                cpu_rows.snr_r[sl] + cpu_rows.snr_i[sl])
+            if rel.max() > 1e-3:
+                raise RuntimeError(f"card vs CPU first batch: {f} {rel.max()}")
+    if worst_cpu > 1e-4:
+        raise RuntimeError(f"card vs CPU first batch: correction {worst_cpu}")
+    log(f"card vs the port on the CPU, first batch (CPU step {t_cpu:.2f} s): indice "
+        f"identical, max correction diff {worst_cpu:.2e} sample")
+
+    # -- 10. the resident step and its device functions -------------------
+    t0 = time.perf_counter()
+    step = boundary.make_ranging_step(rep.fcode, rep.code_interp, np.ones(L, bool),
+                                      cfg.fs, packed=True, device=dev)
+    torch.cuda.synchronize()
+    t_bind = time.perf_counter() - t0
+    log(f"set-up per file: build_replica {t_rep:.4f} s, make_ranging_step "
+        f"{t_bind:.4f} s (host wall)")
+    iq_d = torch.from_numpy(iq).to(dev)
+    dfv_d = torch.from_numpy(dfv).to(dev)
+    step_ms = cuda_ms(lambda: step(iq_d, df_fixed=dfv_d), 20)
+    step_dev_ms, step_ops, table = profile_device(lambda: step(iq_d, df_fixed=dfv_d))
+    log(f"ranging_step per batch of 2 x {GR_BATCH} epochs: {step_ms:.3f} ms (CUDA "
+        f"events), device {step_dev_ms} ms in {step_ops} device ops (profiler)")
+    log(table)
+
+    # the step's parts at the batch's own shapes (B = 2 x 50 rows of L)
+    fcode = torch.as_tensor(rep.fcode.astype(np.complex64), device=dev)
+    fine = torch.as_tensor(zoomdft.fine_window_matrix(L, 1, DEFAULT_FINE_WIDTH)
+                           .astype(np.complex64), device=dev)
+    g = torch.as_tensor(zoomdft.zoom_gather(np.conj(np.fft.fft(
+        rep.code_interp.astype(np.float64))), L, 1).astype(np.complex64), device=dev)
+
+    def prologue():
+        x = iq_d.to(torch.float32)
+        x = torch.cat([x[..., 0:2], x[..., 2:4]], dim=0)
+        d = torch.complex(x[..., 0], x[..., 1])
+        d = d - torch.mean(d, dim=-1, keepdim=True)
+        return d * fftutils.mix_phasor(L, dfv_d, cfg.fs)
+
+    y = prologue()
+    ffty = torch.fft.fft(y, dim=-1)
+    prod = ffty * fcode
+    ci = torch.argmax(torch.abs(torch.fft.ifft(prod, dim=-1)), dim=-1)
+    s_idx = torch.remainder(ci * 3 - 1, 3 * L)
+    d_raw = torch.complex(*torch.cat([iq_d[..., 0:2], iq_d[..., 2:4]], 0)
+                          .to(torch.float32).unbind(-1))
+    dec = doppler.bound_prepass_window(sc16.decimate_sc16(
+        cap, proc.df_decimation, max_out=doppler.PREPASS_MAX_SAMPLES))
+    dec0 = torch.as_tensor(dec[0]).to(dev)
+    funcs = {
+        "fine_window": lambda: zoomdft.fine_window(prod, ci, fine, 1),
+        "zoom_point": lambda: zoomdft.zoom_point(ffty, g, s_idx, 1),
+        "mix_prologue": prologue,
+        "squaring_df": lambda: doppler.squaring_df(d_raw, cfg.fs, np.ones(L, bool)),
+        "per_file_df": lambda: doppler.per_file_df(dec0, cfg.fs, proc.df_decimation),
+    }
+    parts = {}
+    for name, fn in funcs.items():
+        ms = cuda_ms(fn, 20)
+        dev_ms, ops, _ = profile_device(fn)
+        parts[name] = {"ms": ms, "device_ms": dev_ms, "device_ops": ops}
+        log(f"  {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms} ms in "
+            f"{ops} device ops (profiler)")
+    for f in (cap, code):
+        os.remove(f)
+    return {
+        "seconds": GR_SECONDS, "batch_epochs": GR_BATCH, "L": L,
+        "iq_msps": msps, "wall_s": wall, "cold_wall_s": runs[0][1],
+        "timing": out["timing"], "delay_err_samples": [e[0] for e in errs],
+        "df_err_hz": [e[1] for e in errs], "int8_max_delay_diff_ps": ps,
+        "vs_process_file_max_corr": worst_pf, "vs_cpu_max_corr": worst_cpu,
+        "busy_ms": busy, "traced_wall_s": traced_wall,
+        "replica_s": t_rep, "bind_s": t_bind,
+        "step_ms": step_ms, "step_device_ms": step_dev_ms,
+        "step_device_ops": step_ops, "parts": parts,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -453,6 +791,12 @@ def main() -> int:
         f"wall per tracked second (median of seconds 2-{N_SECONDS - 1}) "
         f"{float(np.median(walls[2:])):.4f} s")
     del obs, obs2, w_mat, wav_ext, lb_inputs
+    os.remove(cap)
+
+    # -- 7-10. the GoRanging slice -----------------------------------------
+    t0 = time.perf_counter()
+    gr = goranging_phase(work, dev, args.seed)
+    log(f"goranging phase: {time.perf_counter() - t0:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -460,6 +804,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
+    log(json.dumps({"goranging": gr}))
     log(json.dumps({"kernels": [{
         "name": "lagbank",
         "route": "cuda",

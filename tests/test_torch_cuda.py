@@ -7,6 +7,7 @@ machine that has only PyTorch, without the JAX test harness:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -165,3 +166,107 @@ def test_bank_on_card_matches_cpu(cuda):
             assert abs(a.phi_cycles - b.phi_cycles) < PHI_CYCLES
     assert [s.pt for s in rx_g.states] == [s.pt for s in rx_c.states]
     assert all(r is not None and r.locked for r in rep_g[3])
+
+
+# ---------------------------------------------------------------- GoRanging
+# the card against the CPU, complex64: cuFFT and the cuBLAS window product
+# sum in other orders than the CPU's, so the port-vs-JAX bounds apply
+# (indice identical, correction 1e-4 sample, snr within 1e-3 of the total)
+def _close_ranging(card, cpu):
+    np.testing.assert_array_equal(card["indice"], cpu["indice"])
+    np.testing.assert_allclose(card["correction"], cpu["correction"], rtol=0, atol=1e-4)
+    snr = cpu["snr_r"] + cpu["snr_i"]
+    for f in ("snr_r", "snr_i"):
+        assert np.all(np.abs(card[f] - cpu[f]) <= 1e-3 * snr), f
+
+
+def _ranging_capture(tmp_path, n_seconds=1):
+    from amaranth_twstft_tpu_torch.ops.lfsr import write_prn_file
+    from amaranth_twstft_tpu_torch.utils import io as tio
+
+    cfg = SignalConfig(fs=1e5, chip_rate=5e4, code_len=1000, bit_len=10, taps=9)
+    code = str(tmp_path / "code.bin")
+    write_prn_file(code, cfg.bit_len, cfg.code_len, cfg.taps)
+    meas, ref = synthesize_capture(
+        cfg, [ChannelSim(431.4, 130.0, amplitude=900, noise_sigma=250),
+              ChannelSim(12.75, 5.0, amplitude=2000, noise_sigma=100)],
+        n_seconds=n_seconds, seed=5)
+    cap = str(tmp_path / "cap.bin")
+    tio.write_sc16(cap, meas, ref)
+    return cfg, code, cap
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_correlate_epochs_on_card_matches_cpu(cuda, tmp_path, fast):
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig
+    from amaranth_twstft_tpu_torch.models.godual import build_replica
+    from amaranth_twstft_tpu_torch.ops.correlator import correlate_epochs
+    from amaranth_twstft_tpu_torch.utils import io as tio
+
+    cfg, code, cap = _ranging_capture(tmp_path)
+    rep = build_replica(code, cfg, ProcessingConfig())
+    d, n = tio.read_sc16_epochs(cap, 0, 16, rep.samples_per_code)
+    out = {}
+    for dev in ("cpu", cuda):
+        df = torch.full((n,), 130.25, dtype=torch.float32, device=dev)
+        res = correlate_epochs(
+            torch.as_tensor(d[0]).to(dev), torch.as_tensor(rep.fcode).to(dev), df,
+            torch.as_tensor(rep.code_interp).to(dev), cfg.fs,
+            fcode_interp=torch.as_tensor(rep.fcode_interp).to(dev), fast=fast)
+        out[str(dev)] = {f: getattr(res.to_host(), f) for f in
+                         ("indice", "correction", "snr_r", "snr_i")}
+    _close_ranging(out["cuda"], out["cpu"])
+    assert abs(np.median(out["cuda"]["indice"] + out["cuda"]["correction"]) / 3
+               - 431.4) < 0.1
+
+
+def test_ranging_step_packed_int16_on_card_matches_cpu(cuda, tmp_path):
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig
+    from amaranth_twstft_tpu_torch.models.godual import build_replica
+    from amaranth_twstft_tpu_torch.ops import boundary
+    from amaranth_twstft_tpu_torch.utils import io as tio
+
+    cfg, code, cap = _ranging_capture(tmp_path)
+    rep = build_replica(code, cfg, ProcessingConfig(hamming_window=True))
+    L = rep.samples_per_code
+    iq, n = tio.read_sc16_epochs_raw16(cap, 0, 20, L)
+    df = np.repeat(np.asarray([130.25, 5.5], np.float32), n)
+    rows = {}
+    for dev in ("cpu", cuda):
+        step = boundary.make_ranging_step(rep.fcode, rep.code_interp, np.ones(L, bool),
+                                          cfg.fs, packed=True, device=dev)
+        out = step(torch.as_tensor(iq).to(dev), df_fixed=torch.as_tensor(df).to(dev))
+        res = boundary.to_epoch_result(boundary.unpack_outputs(out.cpu().numpy()))
+        rows[str(dev)] = {f: getattr(res, f) for f in
+                          ("indice", "correction", "snr_r", "snr_i")}
+    _close_ranging(rows["cuda"], rows["cpu"])
+
+
+def test_pipeline_on_card_matches_process_file(cuda, tmp_path):
+    """The overlapped pipeline (pinned buffers, copy stream, packed
+    fetch) against goranging.process_file on the card, over 4 s with a
+    final partial batch: indice identical, correction within 1e-4
+    sample; int16 ingest gives the same bits as float32 ingest."""
+    from amaranth_twstft_tpu_torch import pipeline
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig
+    from amaranth_twstft_tpu_torch.models import goranging
+
+    cfg, code, cap = _ranging_capture(tmp_path, n_seconds=4)
+    proc = ProcessingConfig(hamming_window=True, df_decimation=5)
+    base = goranging.process_file(cap, code, cfg, proc, batch_epochs=25,
+                                  out_mat=str(tmp_path / "b.mat"), device=cuda)
+    o16 = pipeline.process_capture_overlapped(cap, code, cfg, proc, batch_epochs=30,
+                                              out_mat=str(tmp_path / "f.mat"),
+                                              device=cuda)
+    o32 = pipeline.process_capture_overlapped(cap, code, cfg, proc, batch_epochs=30,
+                                              ingest_dtype="float32",
+                                              out_mat=str(tmp_path / "g.mat"),
+                                              device=cuda)
+    assert o16["df"] == base["df"] == o32["df"]
+    for ch in ("ch1", "ch2"):
+        assert len(o16[ch]["indice"]) == 200
+        np.testing.assert_array_equal(o16[ch]["indice"], base[ch]["indice"])
+        np.testing.assert_allclose(o16[ch]["correction"], base[ch]["correction"],
+                                   rtol=0, atol=1e-4)
+        for k, v in o32[ch].items():
+            np.testing.assert_array_equal(o16[ch][k], v, err_msg=k)
