@@ -7,9 +7,19 @@ Ported verbs so far:
 - ``ranging`` — the archived dual-channel chain (``godual_ranging.m``);
 - ``goranging`` — the C++ batch chain (``processing/CPP/main.cpp``:
   ``GoRanging data.bin code.bin [remote] [foffset]``); ``--fast`` runs
-  the IO-overlapped pipeline.
+  the IO-overlapped pipeline;
+- ``claudio`` — the per-code aligned chain (``claudio_*.m``) on one
+  single-channel capture;
+- ``batch`` — directory batch processing (``goprocess.sh``);
+- ``gofinal`` — per-record text extraction (``gofinal_ltfb.m``);
+- ``twoway`` — the daily two-way solve of two text tables (``tw.m``);
+- ``go1s`` — a session's four claudio archives -> ``.1s``/``.1sc``
+  products (``go_1s.m``);
+- ``campaign`` — campaign series from the go1s summaries.
 
-Every verb runs on the card unless ``--device cpu`` is given.  ``dllpll
+``gofinal``, ``twoway``, ``go1s`` and ``campaign`` are host
+post-processing (NumPy) and take no device.  Every other verb runs on the
+card unless ``--device cpu`` is given.  ``dllpll
 --host`` (the host-sequential receiver), ``dllpll --serve`` (the TCP
 monitor), ``goranging --sharded`` and ``goranging --profile`` are not
 ported yet and exit with an error.
@@ -19,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -86,6 +97,71 @@ def _ranging_parsers(sub) -> None:
     _add_device_arg(p)
 
 
+def _claudio_parsers(sub) -> None:
+    p = sub.add_parser("claudio", help="per-code aligned tracking chain")
+    p.add_argument("capture")
+    p.add_argument("code")
+    _add_signal_args(p)
+    p.add_argument("--remote", action="store_true")
+    p.add_argument("--local", action="store_true",
+                   help="local channel instead of ranging")
+    p.add_argument("--op", action="store_true")
+    p.add_argument("-v", "--verbose", action="store_true")
+    _add_device_arg(p)
+
+    p = sub.add_parser("batch", help="process a capture directory")
+    p.add_argument("datadir")
+    p.add_argument("code")
+    _add_signal_args(p)
+    p.add_argument("--chain", choices=["claudio", "godual", "goranging"],
+                   default="claudio")
+    p.add_argument("--remote", action="store_true")
+    _add_device_arg(p)
+
+
+def _twoway_parsers(sub) -> None:
+    p = sub.add_parser("gofinal", help="per-record text extraction")
+    p.add_argument("local_mat")
+    p.add_argument("remote_mat")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--end-unix", type=float)
+    p.add_argument("--fs", type=float, default=5e6)
+
+    p = sub.add_parser("twoway", help="two-way daily solve of text tables")
+    p.add_argument("op_txt")
+    p.add_argument("ltfb_txt")
+
+    p = sub.add_parser(
+        "go1s", help="session workflow: four archives -> .1s products"
+    )
+    p.add_argument("op_dir")
+    p.add_argument("ltfb_dir")
+    p.add_argument("-o", "--output", default=None, help="default: op_dir")
+    p.add_argument("--fs", type=float, default=5e6)
+    p.add_argument("--nint", type=int, default=1)
+    p.add_argument("--no-1s", action="store_true", help="solve only")
+    p.add_argument("--codes-per-second", type=int, default=25)
+
+    p = sub.add_parser(
+        "campaign", help="campaign products from go1s summaries: step "
+        "corrections, ladate/resmean25 text series, figures "
+        "(go_1s.m:356-429)"
+    )
+    p.add_argument("summary_dir",
+                   help="directory holding go1s_summary.txt (the go1s "
+                   "output dir)")
+    p.add_argument("-o", "--output", default=None,
+                   help="series output dir (default: summary_dir)")
+    p.add_argument("--corrections", default=None,
+                   help="operator step-correction table: JSON "
+                   "[[mjd, ns], ...] or '<mjd> <ns>' rows")
+    p.add_argument("--nint", type=int, default=1)
+    p.add_argument("--no-fold", action="store_true",
+                   help="skip the half-ambiguity display fold")
+    p.add_argument("--plot", default=None, metavar="PNG",
+                   help="also draw the campaign figure (matplotlib)")
+
+
 def _dllpll_parser(sub) -> None:
     p = sub.add_parser("dllpll", help="DLL/PLL multi-channel receiver")
     p.add_argument("capture")
@@ -132,6 +208,8 @@ def main(argv: list[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     _dllpll_parser(sub)
     _ranging_parsers(sub)
+    _claudio_parsers(sub)
+    _twoway_parsers(sub)
     args = parser.parse_args(argv)
     if args.cmd == "dllpll":
         if args.host:
@@ -151,6 +229,10 @@ def main(argv: list[str] | None = None) -> int:
             parser.error("goranging --profile: the profiler trace is not "
                          "ported yet")
         return _goranging(args)
+    verbs = {"claudio": _claudio, "batch": _batch, "gofinal": _gofinal,
+             "twoway": _twoway, "go1s": _go1s, "campaign": _campaign}
+    if args.cmd in verbs:
+        return verbs[args.cmd](args)
     parser.error(f"unknown command {args.cmd}")
     return 2
 
@@ -212,6 +294,104 @@ def _goranging(args) -> int:
         )
     print(f"df1={out['df'][0]:.3f}", file=sys.stderr)
     print(out["mat_path"])
+    return 0
+
+
+def _claudio(args) -> int:
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, StationConfig
+    from amaranth_twstft_tpu_torch.models import claudio
+
+    out = claudio.process_file(
+        args.capture, args.code, _signal(args),
+        ProcessingConfig(conjugate_data=True), StationConfig(op=args.op),
+        remote=args.remote, ranging=not (args.remote or args.local),
+        verbose=args.verbose, device=args.device,
+    )
+    if out is None:
+        print("already done", file=sys.stderr)
+        return 0
+    print(out["mat_path"])
+    return 0
+
+
+def _batch(args) -> int:
+    from amaranth_twstft_tpu_torch.pipeline import process_directory
+
+    rep = process_directory(
+        args.datadir, args.code, _signal(args), chain=args.chain,
+        remote=args.remote, device=args.device,
+    )
+    print(json.dumps({"processed": rep.processed, "skipped": rep.skipped,
+                      "failed": rep.failed}))
+    return 0 if not rep.failed else 1
+
+
+def _gofinal(args) -> int:
+    from amaranth_twstft_tpu_torch.models import gofinal
+
+    out = gofinal.extract_session(
+        args.local_mat, args.remote_mat, capture_end_unix=args.end_unix,
+        fs=args.fs, out_txt=args.output,
+    )
+    if out is None:
+        print("already processed", file=sys.stderr)
+        return 0
+    print(f"{len(out['rows'])} rows -> {args.output}")
+    return 0
+
+
+def _twoway(args) -> int:
+    from amaranth_twstft_tpu_torch.models import gofinal, twoway
+
+    res = twoway.pair_and_solve_daily(gofinal.read_rows(args.op_txt),
+                                      gofinal.read_rows(args.ltfb_txt))
+    if not res["ok"]:
+        print(res["reason"], file=sys.stderr)
+        return 1
+    print(json.dumps({"mean_ns": res["mean_ns"], "std_ns": res["std_ns"],
+                      "n": int(len(res["res_ns"]))}))
+    return 0
+
+
+def _go1s(args) -> int:
+    from amaranth_twstft_tpu_torch.config import SignalConfig
+    from amaranth_twstft_tpu_torch.models import go1s
+    from amaranth_twstft_tpu_torch.models.twoway import GatingPolicy
+
+    # gating levels scale with the sample period (the reference's
+    # constants are written for Ts=200 ns); production fs maps to the
+    # defaults exactly
+    policy = GatingPolicy.for_signal(
+        SignalConfig(fs=args.fs), nint=args.nint,
+        codes_per_second=args.codes_per_second,
+    )
+    res = go1s.process_sessions(
+        args.op_dir, args.ltfb_dir, args.output, fs=args.fs, nint=args.nint,
+        policy=policy, gen_1s=not args.no_1s, verbose=True,
+    )
+    print(json.dumps([{k: v for k, v in r.items() if k != "files"}
+                      for r in res], default=str))
+    return 0
+
+
+def _campaign(args) -> int:
+    from amaranth_twstft_tpu_torch.models import campaign, go1s
+
+    rows = go1s.read_summary(os.path.join(args.summary_dir, go1s.SUMMARY_NAME))
+    if not rows:
+        print(f"no {go1s.SUMMARY_NAME} rows in {args.summary_dir}", flush=True)
+        return 1
+    corr = (campaign.load_corrections(args.corrections)
+            if args.corrections else [])
+    series = campaign.campaign_series(
+        rows, nint=args.nint, corrections=corr, fold=not args.no_fold
+    )
+    paths = campaign.write_campaign_series(args.output or args.summary_dir,
+                                           series)
+    if args.plot:
+        paths.append(campaign.plot_campaign(series, args.plot))
+    print(json.dumps({"sessions": len(series["ladate"]),
+                      "corrections": len(corr), "products": paths}, indent=1))
     return 0
 
 

@@ -15,8 +15,17 @@ The masked argmax runs over the spectrum in natural bin order with the
 mask rolled the other way, and the index is remapped to the shifted axis
 (``doppler.py:128-137``); ``df`` is read off the reference's inclusive
 linspace axis in the spectrum's real dtype, before the ``/2``
-(``doppler.py:160,196``).  The claudio search and refresh estimators are
-not ported yet.
+(``doppler.py:160,196``).
+
+The claudio chain's estimators (``claudio_...separate.m:27-47,168-169``):
+:func:`search_df_candidates` validates spectral-line candidates above
+20x the median by a trial correlation, and :func:`refresh_df` re-takes
+the argmax within +/-3 bins of the locked line every block.  Two points
+where torch differs from JAX are handled explicitly: the median averages
+the two middle values (``torch.nanquantile(..., 0.5)``, as
+``jnp.nanmedian`` does; ``torch.nanmedian`` would take the lower one),
+and the refresh window's start is clipped by hand, as
+``lax.dynamic_slice`` clamps it.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from amaranth_twstft_tpu_torch.ops.correlator import quick_xcorr_snr
 from amaranth_twstft_tpu_torch.ops.fftutils import fftfreq_shifted
 
 __all__ = [
@@ -37,6 +47,10 @@ __all__ = [
     "squaring_df",
     "per_file_df",
     "per_file_df_ri",
+    "search_df_candidates",
+    "search_df_candidates_ri",
+    "refresh_df",
+    "refresh_df_ri",
     "fine_df_phase_drift",
 ]
 
@@ -148,6 +162,14 @@ def per_file_df(
     return torch.as_tensor(freq, dtype=d2.dtype, device=d2.device)[idx] / 2.0 + foffset_hz
 
 
+def _ri_complex(x_ri: torch.Tensor) -> torch.Tensor:
+    """(..., 2) re/im in a transfer format -> complex64: float16, int16
+    and int8 are taken in their own units, with no scale."""
+    if x_ri.dtype in (torch.float16, torch.bfloat16, torch.int8, torch.int16):
+        x_ri = x_ri.to(torch.float32)
+    return torch.complex(x_ri[..., 0], x_ri[..., 1])
+
+
 def per_file_df_ri(
     x_ri: torch.Tensor,
     fs: float,
@@ -159,10 +181,120 @@ def per_file_df_ri(
     """:func:`per_file_df` of a (..., 2) re/im input in a transfer format:
     float16, int16 and int8 are taken in their own units, with no scale —
     the squaring-spectrum argmax is scale-invariant."""
-    if x_ri.dtype in (torch.float16, torch.bfloat16, torch.int8, torch.int16):
-        x_ri = x_ri.to(torch.float32)
-    x = torch.complex(x_ri[..., 0], x_ri[..., 1])
-    return per_file_df(x, fs, decim, foffset_hz, frange_hz, windowed)
+    return per_file_df(_ri_complex(x_ri), fs, decim, foffset_hz, frange_hz,
+                       windowed)
+
+
+#: ``torch.quantile``/``nanquantile`` refuse inputs above this many
+#: elements; a claudio block (10^7 bins at 5 MS/s x 2 s) is below it.
+QUANTILE_MAX_ELEMENTS = 1 << 24
+
+
+def _search_df(d, dcode, fcode, mask, fs, threshold, snr_threshold,
+               max_candidates, notch_halfwidth, freq_dtype):
+    """``(best, n_above)`` as 0-d tensors (``doppler.py:203-234``)."""
+    n = d.shape[-1]
+    if n > QUANTILE_MAX_ELEMENTS:
+        raise ValueError(
+            f"search_df_candidates: {n} spectrum bins exceed torch.quantile's "
+            f"limit of {QUANTILE_MAX_ELEMENTS}"
+        )
+    d2 = squaring_spectrum(d)
+    mask = torch.as_tensor(mask, device=d2.device)
+    zero = torch.zeros((), dtype=d2.dtype, device=d2.device)
+    nan = torch.full((), float("nan"), dtype=d2.dtype, device=d2.device)
+    masked = torch.where(mask, d2, zero)
+    med = torch.nanquantile(torch.where(mask, d2, nan), 0.5)
+    above = masked > med * threshold
+    # the top ``max_candidates`` bins among those above threshold; the
+    # reference keeps the last passing candidate in ascending-bin order
+    # (``claudio_...separate.m:33-44``), so only the passing ones decide
+    neg = torch.full((), torch.finfo(d2.dtype).min, dtype=d2.dtype,
+                     device=d2.device)
+    score = torch.where(above, d2, neg)
+    cand_idx = torch.topk(score, max_candidates).indices
+    cand_valid = above[cand_idx]
+    cand_df = _freq_axis_on(n, float(fs), freq_dtype, d2.device)[cand_idx] / 2.0
+    snrs = quick_xcorr_snr(dcode[None, :], fcode, cand_df, fs,
+                           notch_halfwidth=notch_halfwidth)
+    passing = cand_valid & (snrs > snr_threshold)
+    best = torch.max(torch.where(passing, cand_idx, torch.full_like(cand_idx, -1)))
+    return best, torch.sum(above)
+
+
+def search_df_candidates(
+    d: torch.Tensor,
+    dcode: torch.Tensor,
+    fcode: torch.Tensor,
+    fs: float,
+    mask,
+    threshold: float = 20.0,
+    snr_threshold: float = 100.0,
+    max_candidates: int = 32,
+) -> tuple[int, int]:
+    """claudio ``search_df`` (``claudio_...separate.m:27-47``).
+
+    ``d`` is a whole block (squaring FFT input), ``dcode`` its first code
+    period (trial-correlation input).  Returns ``(kbon, n_above)``:
+    ``kbon`` is the shifted-spectrum bin of the validated spectral line,
+    or -1 if none validated; ``n_above`` counts the bins over threshold.
+    The candidates' df is read off the float64 frequency axis, as the JAX
+    package's is under x64 (``doppler.py:257``)."""
+    best, n_above = _search_df(
+        d, dcode, fcode.to(d.dtype), mask, fs, threshold, snr_threshold,
+        max_candidates, 5, torch.float64,
+    )
+    return int(best), int(n_above)
+
+
+def search_df_candidates_ri(
+    d_ri: torch.Tensor,
+    dcode_ri: torch.Tensor,
+    fcode_ri: torch.Tensor,
+    fs: float,
+    mask,
+    threshold: float = 20.0,
+    snr_threshold: float = 100.0,
+    max_candidates: int = 32,
+    notch_halfwidth: int = 5,
+):
+    """:func:`search_df_candidates` of (..., 2) re/im inputs, returning
+    ``(best, n_above)`` as 0-d tensors on the inputs' device.  ``d_ri``
+    may be int8, int16 or float16 with no scale: the line threshold (x the
+    median) and the trial-correlation SNR are ratios, so a global scale,
+    even one different from ``dcode_ri``'s, cancels.  The frequency axis
+    is float32 (``doppler.py:412``)."""
+    return _search_df(
+        _ri_complex(d_ri), _ri_complex(dcode_ri), _ri_complex(fcode_ri), mask,
+        fs, threshold, snr_threshold, max_candidates, notch_halfwidth,
+        torch.float32,
+    )
+
+
+def refresh_df(d: torch.Tensor, fs: float, kbon: int, halfwidth: int = 3):
+    """Per-block df refresh: argmax of the squaring spectrum within
+    ``kbon +/- halfwidth`` (``claudio_...separate.m:168-169``).  Returns
+    ``(df, idx)`` as 0-d tensors.  The window's start is clipped into the
+    spectrum and the absolute index rebuilt from the clipped start, as the
+    JAX package mirrors ``dynamic_slice``'s clamp (``doppler.py:278-284``).
+    Only the window's bins are gathered from the unshifted spectrum."""
+    n = d.shape[-1]
+    w = 2 * halfwidth + 1
+    if n < w:
+        raise ValueError(f"refresh_df: {n} bins < the {w}-bin window")
+    start = min(max(int(kbon) - halfwidth, 0), n - w)
+    sp = _squaring_spectrum_unshifted(d)
+    # shifted bin j is unshifted bin (j - n//2) mod n
+    pos = torch.remainder(
+        torch.arange(start, start + w, device=sp.device) - n // 2, n)
+    idx = start + torch.argmax(sp[..., pos], dim=-1)
+    return _freq_axis(n, fs, sp)[idx] / 2.0, idx
+
+
+def refresh_df_ri(x_ri: torch.Tensor, fs: float, kbon: int, halfwidth: int = 3):
+    """:func:`refresh_df` of a (..., 2) re/im input; int8, int16 and
+    float16 are taken scale-free (the argmax is scale-invariant)."""
+    return refresh_df(_ri_complex(x_ri), fs, kbon, halfwidth)
 
 
 def fine_df_phase_drift(

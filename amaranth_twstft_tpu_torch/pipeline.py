@@ -21,18 +21,32 @@ The port's counterpart of the JAX package's
 Reader failures come back through the queue, an empty capture raises
 ``ValueError``, and a final partial batch is zero-padded to the batch
 shape and its padding rows dropped.
+
+:func:`process_directory` is the directory batch runner of
+``goprocess.sh`` (``pipeline.py:705-771``): every unprocessed capture of
+a directory through one chain, with the idempotent-resume contract;
+:func:`gzip_archives` is its gzip preamble.  The scheduling helpers, the
+acquisition retry loop and ``follow_capture`` are not ported.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import queue
 import threading
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from amaranth_twstft_tpu_torch.config import ProcessingConfig, SignalConfig
+from amaranth_twstft_tpu_torch.config import (
+    ProcessingConfig,
+    SignalConfig,
+    StationConfig,
+)
+from amaranth_twstft_tpu_torch.models import claudio, godual, goranging
 from amaranth_twstft_tpu_torch.models.godual import ChannelArrays, build_replica
 from amaranth_twstft_tpu_torch.models.goranging import default_mat_name
 from amaranth_twstft_tpu_torch.ops import boundary
@@ -45,7 +59,13 @@ from amaranth_twstft_tpu_torch.ops.doppler import (
 from amaranth_twstft_tpu_torch.utils import io, matio
 from amaranth_twstft_tpu_torch.utils.platform import resolve_device
 
-__all__ = ["I8_PARITY_P99_NS", "process_capture_overlapped"]
+__all__ = [
+    "I8_PARITY_P99_NS",
+    "process_capture_overlapped",
+    "BatchReport",
+    "process_directory",
+    "gzip_archives",
+]
 
 #: Measured p99 |delay error| of the int8 transfer format against the
 #: float64 oracle at the -13 dB operating point (PARITY.md deviation 10);
@@ -317,3 +337,73 @@ def process_capture_overlapped(
            for k, v in stats.items()},
     }
     return out
+
+
+@dataclass
+class BatchReport:
+    processed: list[str]
+    skipped: list[str]
+    failed: list[tuple[str, str]]
+
+
+def process_directory(
+    datadir: str,
+    code_path: str,
+    signal: SignalConfig,
+    proc: ProcessingConfig | None = None,
+    station: StationConfig | None = None,
+    chain: str = "claudio",
+    remote: bool = False,
+    device=None,
+) -> BatchReport:
+    """Process every unprocessed capture in ``datadir`` (goprocess.sh) on
+    ``device`` (default ``cuda``; a missing card raises before any
+    capture is touched).
+
+    ``chain``: ``claudio`` (single-channel files ``*_{1,2}.bin``),
+    ``godual`` or ``goranging`` (dual-channel ``1*.bin``).  A capture
+    whose chain raises is recorded in ``failed`` and the batch goes on;
+    nothing is retried on another device.  Outputs are gzipped and inputs
+    moved to ``donetw/`` on success (``claudio_...separate.m:210-215``).
+    """
+    dev = resolve_device(device)
+    proc = proc or ProcessingConfig()
+    station = station or StationConfig()
+    pattern = f"*_{station.remote_channel}.bin" if chain == "claudio" else "1*.bin"
+    report = BatchReport([], [], [])
+    for cap in sorted(glob.glob(os.path.join(datadir, pattern))):
+        try:
+            if chain == "claudio":
+                out = claudio.process_file(
+                    cap, code_path, signal, proc, station,
+                    remote=remote, device=dev,
+                )
+            elif chain == "godual":
+                out = godual.process_file(
+                    cap, code_path, signal, proc, station,
+                    remote=remote, device=dev,
+                )
+            elif chain == "goranging":
+                out = goranging.process_file(
+                    cap, code_path, signal, proc, remote=remote, device=dev,
+                )
+            else:
+                raise ValueError(f"unknown chain {chain!r}")
+        except Exception as e:  # noqa: BLE001 — keep the batch going
+            report.failed.append((cap, repr(e)))
+            continue
+        if out is None:
+            report.skipped.append(cap)
+            continue
+        if out.get("mat_path"):
+            matio.gzip_file(out["mat_path"])
+        io.move_to_done(cap)
+        report.processed.append(cap)
+    return report
+
+
+def gzip_archives(directory: str) -> list[str]:
+    """gzip the bare ``*.mat`` archives in a directory (``goprocess.sh``
+    preamble)."""
+    return [matio.gzip_file(p)
+            for p in sorted(glob.glob(os.path.join(directory, "*.mat")))]

@@ -19,6 +19,7 @@ package's native quantizer is bit-identical to that path) and
 from __future__ import annotations
 
 import os
+import shutil
 import time
 
 import numpy as np
@@ -32,8 +33,11 @@ __all__ = [
     "read_sc16_epochs_packed",
     "read_sc16_epochs_q8",
     "read_sc16_epochs_raw16",
+    "read_raw16",
     "decimate_sc16",
     "write_sc16",
+    "already_done",
+    "move_to_done",
 ]
 
 _TORCH_FLOAT = {np.dtype(np.float16): torch.float16,
@@ -235,6 +239,27 @@ def read_sc16_epochs_raw16(
     return out[:n], n
 
 
+def read_raw16(
+    path: str,
+    start_frame: int,
+    n_frames: int,
+    out: np.ndarray | None = None,
+):
+    """Raw int16 frame-range copy of a single-channel sc16 file: frames
+    ``[start_frame, start_frame + n_frames)`` as (n, 2) int16 (the JAX
+    package's ``native.read_raw16`` memmap branch,
+    ``native/__init__.py:293-330``).  With ``out`` (shape (>= n_frames,
+    2), for example a NumPy view of a pinned buffer) the frames land
+    there.  Returns (a, n) with ``a`` the first ``n`` rows; a short read
+    at the end of the file returns fewer rows."""
+    mm = open_sc16(path, 1)
+    n = min(n_frames, max(0, mm.shape[0] - start_frame))
+    if out is None:
+        out = np.empty((n, 2), np.int16)
+    np.copyto(out[:n], mm[start_frame : start_frame + n])
+    return out[:n], n
+
+
 def decimate_sc16(
     path: str,
     decim: int,
@@ -265,3 +290,18 @@ def write_sc16(path: str, *channels_iq: np.ndarray) -> None:
         out[:, 2 * c] = np.clip(np.round(np.real(z)), -32768, 32767)
         out[:, 2 * c + 1] = np.clip(np.round(np.imag(z)), -32768, 32767)
     out.tofile(path)
+
+
+# Idempotent resume: the reference skips records whose output exists and
+# moves processed inputs to ``donetw/`` (``claudio_...separate.m:119,
+# 210-218``, ``gofinal_ltfb.m:32``).
+def already_done(out_path: str) -> bool:
+    return os.path.exists(out_path) or os.path.exists(out_path + ".gz")
+
+
+def move_to_done(in_path: str, done_dir: str = "donetw") -> str:
+    ddir = os.path.join(os.path.dirname(in_path) or ".", done_dir)
+    os.makedirs(ddir, exist_ok=True)
+    dest = os.path.join(ddir, os.path.basename(in_path))
+    shutil.move(in_path, dest)
+    return dest

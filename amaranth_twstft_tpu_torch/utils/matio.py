@@ -96,11 +96,14 @@ def save_c_style(path: str, ch1: dict, ch2: dict | None) -> None:
     sio.savemat(path, md)
 
 
-def save_claudio_style(path: str, ch: dict, code=None, moved=None) -> None:
+def save_claudio_style(path: str, ch: dict, code=None, moved=None,
+                       carry_trimmed=None) -> None:
     """Fields of ``claudio_...separate.m:207``: ``corr* df indic* SNR*
     code puissan* xval* moved*`` — per-code arrays, ``indice`` on the
     non-interpolated (1-based) grid, ``xval1`` complex, ``moved`` the
-    slip-epoch list."""
+    slip-epoch list.  ``carry_trimmed`` (the epochs at which the resident
+    path trimmed a piled-up carry) is written only when non-empty, so an
+    archive without a trim has exactly the reference's fields."""
     md: dict[str, Any] = {
         "indice1": _col(np.asarray(ch["indice"], dtype=np.float64)),
         "correction1": _col(ch["correction"]),
@@ -111,6 +114,8 @@ def save_claudio_style(path: str, ch: dict, code=None, moved=None) -> None:
         "xval1": _col(np.asarray(ch["xval"], dtype=np.complex128)),
         "moved": _col(np.asarray(moved if moved is not None else [], dtype=np.float64)),
     }
+    if carry_trimmed:
+        md["carry_trimmed"] = _col(np.asarray(carry_trimmed, dtype=np.float64))
     if code is not None:
         md["code"] = _col(np.asarray(code, dtype=np.float64))
     sio.savemat(path, md)

@@ -59,6 +59,33 @@ kernel: cuFFT, one IEEE-fp32 ``torch.matmul`` and elementwise torch):
     time and ops per call of the functions a later PR will write as
     kernels.
 
+The claudio chain and the two-way products, ``twstft-torch claudio``
+then ``twstft-torch go1s`` and ``campaign`` (no hand-written kernel
+either: the resident int8 block step is cuFFT, the packed ranging step
+and elementwise torch):
+
+11. writes, on the card one second at a time, the four single-channel
+    34-s captures of one two-way session at production geometry (5 MS/s,
+    L = 200 000, 2-s blocks; OP on taps 9, LTFB on another maximal tap
+    set; 680 MB each): OP ``<ts>_2`` (loopback, OP code) and ``<ts>_1``
+    (remote, LTFB code), LTFB ``<ts+4>_2`` and ``<ts+4>_1``, with
+    Dopplers in each site's claudio window, fractional delays and noise
+    from ``--seed``; runs the ``claudio`` verb in-process on each
+    (production ``ProcessingConfig(conjugate_data=True)``: the 30-s hunt
+    skip, then 17 blocks) and checks every block's df within 0.5 Hz of
+    the truth, a non-empty ``moved`` and the median tracked delay within
+    0.01 sample of the truth folded by the re-seek;
+12. holds the card against the port on the CPU on a 4-s prefix of the
+    first capture (no hunt skip, the resident path on both): df and
+    ``moved`` identical, delays within 1e-4 sample;
+13. prints each file's end-to-end claudio IQ MS/s (cold or warm cache),
+    its layer times and, over one traced warm file, the card's busy
+    share;
+14. times the block step's functions at production shapes;
+15. runs ``go1s`` on the two directories and checks one solved session,
+    the ``.1s``/``.1sc`` products and ``res_mean_ns`` within 1 ns of the
+    folded truths, then ``campaign`` on its summary.
+
 It prints the card's name and power limit (``nvidia-smi``), one
 ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -101,6 +128,19 @@ GR_AMPLITUDE = 1000.0  # int16 units
 GR_NOISE = 300.0  # per I/Q component
 GR_DELAY_TOL = 0.01  # samples
 GR_DF_TOL = 1.0  # Hz
+TW_SECONDS = 34  # per claudio capture: the 30-s hunt skip + 17 blocks
+TW_PREFIX_SECONDS = 4  # the card-vs-CPU prefix
+# int16 units; noise per I/Q component.  The loopbacks are strong (their
+# delay noise must stay well under go_1s's 2 ns sample-loss gate); the
+# remotes sit at -11.7 dB per sample, C/N0 = 55.3 dB-Hz, the campaign's
+# operating range (go_1s.m:420-429)
+TW_LOOPBACK_AMPLITUDE = 1000.0
+TW_REMOTE_AMPLITUDE = 110.0
+TW_NOISE = 300.0
+TW_DELAY_TOL = 0.01  # samples, median tracked delay vs folded truth
+TW_DF_TOL = 0.5  # Hz, every block's df
+TW_CPU_DELAY_TOL = 1e-4  # samples, card vs CPU on the resident path
+TW_RES_TOL_NS = 1.0  # go1s res_mean vs the folded truths
 
 
 def log(msg: str) -> None:
@@ -473,6 +513,10 @@ def profile_device(fn, reps: int = 5):
     fn()
     torch.cuda.synchronize()
     prof, dev_events, _ = traced(fn, reps)
+    if not dev_events:
+        # the first trace after a long traced run came back without its
+        # device events once on the H100; one more trace gets them
+        prof, dev_events, _ = traced(fn, reps)
     try:
         table = prof.key_averages().table(sort_by="device_time_total", row_limit=14)
     except (AttributeError, KeyError, ValueError):
@@ -674,6 +718,315 @@ def goranging_phase(work: str, dev, seed: int) -> dict:
     }
 
 
+def synthesize_single(dev, seed: int, code_path: str, delay: float,
+                      doppler: float, amplitude: float, path: str, seconds: int,
+                      fs: float) -> None:
+    """Write a single-channel sc16 capture: the code of ``code_path``
+    delayed by ``delay`` samples (circularly, by an FFT phase ramp), at
+    ``doppler`` Hz with a random phase and ``amplitude``, plus noise;
+    built on the card one second at a time."""
+    from amaranth_twstft_tpu_torch.ops.lfsr import read_prn_file
+
+    chips = read_prn_file(code_path).astype(np.float64) * 2 - 1
+    code = torch.from_numpy(np.repeat(chips, int(fs // CHIP_RATE))).to(dev)
+    L = code.numel()
+    k = torch.fft.fftfreq(L, device=dev, dtype=torch.float64)
+    wave = torch.fft.ifft(torch.fft.fft(code) * torch.exp(-2j * math.pi * k * delay))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    phase = float(np.random.default_rng(seed).uniform())
+    n = int(fs)
+    t = torch.arange(n, device=dev, dtype=torch.float64)
+    with open(path, "wb") as f:
+        for s0 in range(0, seconds * n, n):
+            tt = t + s0
+            ph = torch.remainder(doppler * tt / fs + phase, 1.0)
+            sig = amplitude * wave[torch.remainder(tt.long(), L)] * torch.exp(
+                2j * math.pi * ph)
+            noise = torch.randn(2, n, generator=gen, device=dev,
+                                dtype=torch.float64) * TW_NOISE
+            iq = torch.stack([sig.real + noise[0], sig.imag + noise[1]], dim=-1)
+            f.write(torch.clamp(torch.round(iq), -32768, 32767).to(torch.int16)
+                    .cpu().numpy().tobytes())
+
+
+def session_truths(seed: int, lt_taps: int, L: int, block: int, fs: float) -> dict:
+    """The four captures of one session: (site, channel) -> (code taps,
+    delay, Doppler, amplitude).  Each site's loopback ``_2`` carries its
+    own code, its remote ``_1`` the other site's; the Dopplers lie in each
+    site's claudio window (OP negative, ``claudio.py:50-58``); the delays
+    have fractional parts away from one half, so the re-seek's rounding is
+    unambiguous.
+
+    The loopbacks' doubled Doppler sits on a centre of the 2-s block's
+    FFT bins.  Off a centre, the squaring line of a channel this strong
+    leaks above the hunt's 20x-median gate for up to +-16 bins, the
+    reference's hunt keeps the highest-bin candidate that passes the
+    trial correlation (``claudio_...separate.m:33-44``), and the +-3-bin
+    refresh cannot walk back to the line: df would be off by up to 4 Hz.
+    The JAX package does the same: ``tests/test_torch_claudio.py::
+    test_production_hunt_matches_jax`` holds both packages to the same
+    bins and df on a production block with its line between bins.  The
+    weak remotes' lines leak past no more than 3 bins, so their Dopplers
+    are drawn freely."""
+    rng = np.random.default_rng(seed + 4)
+    taps = {"OP": 9, "LTFB": lt_taps}
+    truths = {}
+    for site, ch in (("OP", "_2"), ("OP", "_1"), ("LTFB", "_2"), ("LTFB", "_1")):
+        own = site if ch == "_2" else ("LTFB" if site == "OP" else "OP")
+        frac = rng.uniform(0.1, 0.4) * rng.choice([-1.0, 1.0])
+        delay = float(rng.integers(L // 20, L - L // 20)) + frac
+        dop = (-1.0 if site == "OP" else 1.0) * rng.uniform(46.5e3, 53.5e3)
+        if ch == "_2":
+            half_bin = fs / block / 2  # the doubled axis' bin, halved
+            dop = round(dop / half_bin) * half_bin
+            amp = TW_LOOPBACK_AMPLITUDE
+        else:
+            amp = TW_REMOTE_AMPLITUDE
+        truths[(site, ch)] = (taps[own], delay, dop, amp)
+    return truths
+
+
+def folded_delay(delay: float) -> float:
+    """Where the claudio chain tracks a code delayed by ``delay`` samples:
+    its data-conjugated correlation peaks at ``-delay`` mod L, and the
+    re-seek (``claudio.py:524-529``) parks the peak at 21 + that peak's
+    fractional part, i.e. at ``21 - (delay - round(delay))``."""
+    return 21.0 - (delay - round(delay))
+
+
+def run_claudio_cli(cap: str, code: str, site: str, ch: str, dev):
+    """The main path: ``twstft-torch claudio`` in-process (production
+    ``ProcessingConfig(conjugate_data=True)``).  Returns the chain's
+    result dict and the call's wall time."""
+    from amaranth_twstft_tpu_torch import cli
+    from amaranth_twstft_tpu_torch.models import claudio
+
+    kept = {}
+    orig = claudio.process_file
+
+    def keep(*a, **kw):
+        kept["out"] = orig(*a, **kw)
+        return kept["out"]
+
+    argv = ["claudio", cap, code, "--remote" if ch == "_1" else "--local",
+            "--device", str(dev)] + (["--op"] if site == "OP" else [])
+    claudio.process_file = keep
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        claudio.process_file = orig
+    if rc != 0 or kept.get("out") is None:
+        raise RuntimeError(f"claudio {cap} exited {rc}")
+    return kept["out"], wall
+
+
+def tracked_delays(out: dict) -> np.ndarray:
+    return out["indice"].astype(np.float64) + out["correction"] / 3.0
+
+
+def twoway_phase(work: str, dev, seed: int, lt_taps: int) -> dict:
+    """Steps 11-15; returns the numbers of the ``{"twoway": ...}`` line."""
+    from amaranth_twstft_tpu_torch import cli
+    from amaranth_twstft_tpu_torch.config import (
+        ProcessingConfig,
+        SignalConfig,
+        StationConfig,
+    )
+    from amaranth_twstft_tpu_torch.models import claudio
+    from amaranth_twstft_tpu_torch.models.godual import build_replica
+    from amaranth_twstft_tpu_torch.ops import boundary, doppler
+    from amaranth_twstft_tpu_torch.ops.lfsr import write_prn_file
+    from amaranth_twstft_tpu_torch.utils import io as sc16
+
+    cfg = SignalConfig()
+    proc = ProcessingConfig(conjugate_data=True)  # production: 2-s blocks, 30-s skip
+    L, fs = cfg.samples_per_code, cfg.fs
+    root = os.path.join(work, "twoway")
+    truths = session_truths(seed, lt_taps, L, int(fs * proc.block_seconds), fs)
+    codes = {}
+    for taps in sorted({v[0] for v in truths.values()}):
+        codes[taps] = os.path.join(root, f"code_{taps}.bin")
+        os.makedirs(root, exist_ok=True)
+        write_prn_file(codes[taps], cfg.bit_len, cfg.code_len, taps)
+    ts = {"OP": 1755400000, "LTFB": 1755400004}  # one decade: one session
+    claudio._RESIDENT_CACHE.clear()
+    files = {}
+    prefix = None
+    for (site, ch), (taps, delay, dop, amp) in truths.items():
+        os.makedirs(os.path.join(root, site), exist_ok=True)
+        cap = os.path.join(root, site, f"{ts[site]}{ch}.bin")
+        t0 = time.perf_counter()
+        synthesize_single(dev, seed + len(files), codes[taps], delay, dop, amp,
+                          cap, TW_SECONDS, fs)
+        t_syn = time.perf_counter() - t0
+        out, wall = run_claudio_cli(cap, codes[taps], site, ch, dev)
+        tm = out["timing"]
+        n_iq = sc16.n_samples_sc16(cap, channels=1)
+        msps = n_iq / tm["total_s"] / 1e6
+        dl = tracked_delays(out)
+        d_err = float(np.median(dl) - folded_delay(delay))
+        df_err = float(np.abs(out["df"] - dop).max())
+        blocks = len(tm["block_step_ms"])
+        warm = "warm" if tm["cache_hit"] else "cold"
+        log(f"claudio {site}{ch} ({warm}, taps {taps}): {os.path.getsize(cap) / 1e6:.0f} MB "
+            f"written in {t_syn:.1f} s; process_file {tm['total_s']:.3f} s "
+            f"(verb wall {wall:.3f} s) -> {msps:.2f} IQ MS/s; {len(dl)} codes in "
+            f"{blocks} blocks; median delay err {d_err:+.5f} sample (truth "
+            f"{folded_delay(delay):.4f}); max |df - truth| {df_err:.4f} Hz; "
+            f"moved {out['moved']}")
+        log(f"  layers: setup {tm['setup_s']:.4f} s, hunt {tm['hunt_s']:.4f} s, "
+            f"raw read {tm['read_s']:.4f} s, quantize {tm['quantize_s']:.4f} s, "
+            f"H2D enqueue {tm['h2d_enqueue_s']:.4f} s, block step "
+            f"{np.mean(tm['block_step_ms']):.3f} ms per block (CUDA events; "
+            f"{[round(x, 3) for x in tm['block_step_ms']]}), fetch wait "
+            f"{tm['fetch_wait_s']:.4f} s, {len(tm['slip_ms'])} slip passes "
+            f"{[round(x, 3) for x in tm['slip_ms']]} ms, .mat write "
+            f"{tm['mat_write_s']:.4f} s")
+        if not out["found"] or not out["moved"] or out["carry_trimmed"]:
+            raise RuntimeError(f"claudio {site}{ch}: found {out['found']}, moved "
+                               f"{out['moved']}, trims {out['carry_trimmed']}")
+        if abs(d_err) > TW_DELAY_TOL or df_err > TW_DF_TOL:
+            raise RuntimeError(f"claudio {site}{ch}: truth check failed")
+        # the re-seek drops at most the session's last partial code
+        if blocks != TW_SECONDS // 2 or not (
+                0 <= TW_SECONDS * round(cfg.codes_per_second) - len(dl) <= 1):
+            raise RuntimeError(f"claudio {site}{ch}: {blocks} blocks, {len(dl)} codes")
+        files[f"{site}{ch}"] = {
+            "cache": warm, "iq_msps": msps, "total_s": tm["total_s"],
+            "verb_wall_s": wall, "delay_err_samples": d_err, "df_err_hz": df_err,
+            "moved": out["moved"], "timing": tm,
+        }
+        if prefix is None:
+            # a 4-s prefix of the first capture, for the CPU comparison
+            prefix = (os.path.join(root, f"{ts[site]}{ch}_prefix.bin"), codes[taps])
+            with open(cap, "rb") as src, open(prefix[0], "wb") as dst:
+                dst.write(src.read(TW_PREFIX_SECONDS * int(fs) * 4))
+        if site == "LTFB" and ch == "_1":
+            # -- 13. the busy share over one traced warm file ----------------
+            os.makedirs(os.path.join(root, "traced"), exist_ok=True)
+            kw = dict(remote=True, ranging=False, out_dir=os.path.join(root, "traced"),
+                      device=dev)
+            _, dev_events, traced_wall = traced(lambda: claudio.process_file(
+                cap, codes[taps], cfg, proc, StationConfig(op=False), **kw), 1)
+            busy = busy_ms(dev_events) if dev_events else None
+            log(f"  traced warm run: wall {traced_wall:.3f} s, device busy {busy} ms "
+                f"({len(dev_events)} device ops)"
+                + (f" -> busy share {busy / 1e3 / traced_wall:.4f}" if busy else ""))
+            files[f"{site}{ch}"].update(busy_ms=busy, traced_wall_s=traced_wall)
+            last = (cap, codes[taps])
+        else:
+            os.remove(cap)
+
+    # -- 14. the block step's functions at production shapes -----------------
+    cap, code = last
+    res = next(iter(v for k, v in claudio._RESIDENT_CACHE.items()
+                    if k[0] == os.path.abspath(code)))
+    block = int(fs * proc.block_seconds)
+    raw, _ = sc16.read_raw16(cap, 0, block)
+    q8_np, scale = claudio._quantize_q8(raw)
+    q8 = torch.from_numpy(q8_np).to(dev)
+    scale = float(np.float32(scale))
+    x, prev = res.new_buffer(), res.new_buffer()
+    dold = L // 3  # a carry as after a slip
+    offsets = np.arange(0, dold + block - L + 1, L, dtype=np.int64)
+    res.assemble(x, prev, 0, dold, q8, scale)
+    rep = build_replica(code, cfg, proc, conjugate=False)
+    mask_d = torch.from_numpy(doppler.window_mask(
+        block, fs, *claudio.claudio_df_window(StationConfig(op=False), False))).to(dev)
+    dc_np = raw[:L].astype(np.float32)
+    dc = torch.from_numpy(dc_np - dc_np.mean(axis=0, keepdims=True)).to(dev)
+    fcode_ri = torch.from_numpy(boundary.pack_complex(rep.fcode)).to(dev)
+    kbon = int(doppler.search_df_candidates_ri(q8, dc, fcode_ri, fs, mask_d)[0])
+    raw_d = x[dold : dold + block]
+    wins = res.windows(x, offsets, dold + block)
+    df_d = doppler.refresh_df_ri(raw_d, fs, kbon)[0].to(torch.float32)
+    funcs = {
+        "claudio_assemble": lambda: res.assemble(x, prev, 0, dold, q8, scale),
+        "claudio_refresh_df": lambda: doppler.refresh_df_ri(raw_d, fs, kbon),
+        "claudio_window_gather": lambda: res.windows(x, offsets, dold + block),
+        "claudio_packed_step": lambda: res.step_packed(wins, df_fixed=df_d),
+        "claudio_block_step": lambda: res.block_step(x, prev, 0, dold, q8, scale,
+                                                     kbon, offsets),
+        "search_df_candidates_ri": lambda: doppler.search_df_candidates_ri(
+            q8, dc, fcode_ri, fs, mask_d),
+    }
+    parts = {}
+    for name, fn in funcs.items():
+        ms = cuda_ms(fn, 10)
+        dev_ms, ops, _ = profile_device(fn)
+        parts[name] = {"ms": ms, "device_ms": dev_ms, "device_ops": ops}
+        log(f"  {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms} ms in "
+            f"{ops} device ops (profiler)")
+    log(f"  block step shapes: block {block} samples, {len(offsets)} windows "
+        f"padded to {res.pad_to} x L = {L}")
+    del x, prev, q8, wins, dc, fcode_ri, mask_d, raw_d
+    os.remove(cap)
+
+    # -- 12. the card against the CPU on a 4-s prefix ------------------------
+    pre_proc = ProcessingConfig(conjugate_data=True, skip_seconds=0.0)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        od = os.path.join(root, f"prefix_{name}")
+        os.makedirs(od, exist_ok=True)
+        t0 = time.perf_counter()
+        runs[name] = claudio.process_file(
+            prefix[0], prefix[1], cfg, pre_proc, StationConfig(op=True),
+            ranging=False, out_dir=od, device=d, transfer="int8")
+        log(f"4-s prefix on the {name}: {time.perf_counter() - t0:.2f} s")
+    card, cpu = runs["card"], runs["cpu"]
+    pre_err = float(np.abs(tracked_delays(card) - tracked_delays(cpu)).max())
+    if not np.array_equal(card["df"], cpu["df"]) or card["moved"] != cpu["moved"] \
+            or pre_err > TW_CPU_DELAY_TOL:
+        raise RuntimeError(f"claudio card vs CPU: df {card['df'][:1]} / "
+                           f"{cpu['df'][:1]}, moved {card['moved']} / {cpu['moved']}, "
+                           f"delay {pre_err}")
+    log(f"claudio card vs the port on the CPU (4-s prefix, resident int8 path): "
+        f"df identical, moved identical, max delay diff {pre_err:.2e} sample "
+        f"(tolerance {TW_CPU_DELAY_TOL:g})")
+    os.remove(prefix[0])
+
+    # -- 15. go1s and campaign ----------------------------------------------
+    out_dir = os.path.join(root, "products")
+    os.makedirs(out_dir, exist_ok=True)
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(["go1s", os.path.join(root, "OP"), os.path.join(root, "LTFB"),
+                       "-o", out_dir])
+    go1s_wall = time.perf_counter() - t0
+    rows = json.loads(stdout.getvalue().splitlines()[-1])
+    fold = {k: folded_delay(v[1]) for k, v in truths.items()}
+    truth_ns = 0.5 * ((fold["OP", "_1"] - fold["OP", "_2"])
+                      - (fold["LTFB", "_1"] - fold["LTFB", "_2"])) * 1e9 / fs
+    if rc != 0 or len(rows) != 1:
+        raise RuntimeError(f"go1s exited {rc} with {len(rows)} sessions")
+    res_err = rows[0]["res_mean_ns"] - truth_ns
+    products = sorted(os.listdir(out_dir))
+    log(f"go1s: wall {go1s_wall:.3f} s, {rows[0]['n_codes']} codes, res_mean "
+        f"{rows[0]['res_mean_ns']:.4f} ns (folded truth {truth_ns:.4f} ns, err "
+        f"{res_err:+.4f} ns), res std {rows[0]['res_std_ns']:.4f} ns, refined "
+        f"mean {rows[0]['res_refined_mean_ns']:.4f} ns; products {products}")
+    if abs(res_err) > TW_RES_TOL_NS or not any(p.endswith(".1s") for p in products) \
+            or not any(p.endswith(".1sc") for p in products):
+        raise RuntimeError("go1s check failed")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["campaign", out_dir])
+    if rc != 0 or not os.path.exists(os.path.join(out_dir, "resmean25.txt")):
+        raise RuntimeError(f"campaign exited {rc}")
+    log(f"campaign: products {sorted(os.listdir(out_dir))}")
+    return {
+        "seconds": TW_SECONDS, "files": files, "parts": parts,
+        "prefix_max_delay_diff_samples": pre_err, "go1s_wall_s": go1s_wall,
+        "res_mean_ns": rows[0]["res_mean_ns"], "truth_ns": truth_ns,
+        "res_err_ns": res_err,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -798,6 +1151,11 @@ def main() -> int:
     gr = goranging_phase(work, dev, args.seed)
     log(f"goranging phase: {time.perf_counter() - t0:.1f} s")
 
+    # -- 11-15. the claudio chain and the two-way products ------------------
+    t0 = time.perf_counter()
+    tw = twoway_phase(work, dev, args.seed, next(t for t in taps if t != 9))
+    log(f"two-way phase: {time.perf_counter() - t0:.1f} s")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -805,6 +1163,7 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"goranging": gr}))
+    log(json.dumps({"twoway": tw}))
     log(json.dumps({"kernels": [{
         "name": "lagbank",
         "route": "cuda",

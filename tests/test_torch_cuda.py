@@ -270,3 +270,101 @@ def test_pipeline_on_card_matches_process_file(cuda, tmp_path):
                                    rtol=0, atol=1e-4)
         for k, v in o32[ch].items():
             np.testing.assert_array_equal(o16[ch][k], v, err_msg=k)
+
+
+# ------------------------------------------------------------------ claudio
+# the card against the port's CPU run of the same path (float32 both):
+# df bin identical, delay (indice + correction/3) within 1e-4 sample
+CLAUDIO_DELAY_TOL = 1e-4
+
+
+def _claudio_fixture(tmp_path, delay=20.0, doppler=0.0, drop=500):
+    """tests/test_claudio.py's slip fixture: 2 s at L = 2000 with 500
+    samples lost at 1.0 s."""
+    from amaranth_twstft_tpu_torch.ops.lfsr import write_prn_file
+    from amaranth_twstft_tpu_torch.utils import io as tio
+
+    cfg = SignalConfig(fs=1e5, chip_rate=5e4, code_len=1000, bit_len=10, taps=9)
+    code = str(tmp_path / "code.bin")
+    write_prn_file(code, cfg.bit_len, cfg.code_len, cfg.taps)
+    (s,) = synthesize_capture(cfg, [ChannelSim(delay, doppler, amplitude=1500,
+                                               noise_sigma=100)],
+                              n_seconds=2, seed=3)
+    cut = int(cfg.fs)
+    s = np.concatenate([s[:cut], s[cut + drop:]])
+    cap = str(tmp_path / "1755400001_2.bin")
+    tio.write_sc16(cap, s)
+    return cfg, code, cap
+
+
+def test_claudio_df_estimators_on_card_match_cpu(cuda, tmp_path):
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig
+    from amaranth_twstft_tpu_torch.models.godual import build_replica
+    from amaranth_twstft_tpu_torch.models.claudio import _quantize_q8
+    from amaranth_twstft_tpu_torch.ops import boundary, doppler
+    from amaranth_twstft_tpu_torch.utils import io as tio
+
+    cfg, code, cap = _claudio_fixture(tmp_path, delay=333.0, doppler=150.0, drop=0)
+    rep = build_replica(code, cfg, ProcessingConfig(), conjugate=False)
+    block = 50_000
+    raw, _ = tio.read_raw16(cap, 0, block)
+    q8, _ = _quantize_q8(raw)
+    dc = raw[:2000].astype(np.float32)
+    dc -= dc.mean(axis=0, keepdims=True)
+    fc = boundary.pack_complex(rep.fcode)
+    mask = doppler.window_mask(block, cfg.fs, -8e3, 8e3)
+    got = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        kb, n_above = doppler.search_df_candidates_ri(t(q8), t(dc), t(fc), cfg.fs,
+                                                      t(mask))
+        refreshed = [doppler.refresh_df_ri(t(q8), cfg.fs, k)
+                     for k in (int(kb), 0, block - 1)]
+        got[str(dev)] = (int(kb), int(n_above),
+                         [(float(df), int(i)) for df, i in refreshed])
+    assert got["cuda"] == got["cpu"]
+    assert got["cpu"][0] >= 0
+
+
+def test_resident_claudio_on_card_matches_cpu(cuda, tmp_path):
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, StationConfig
+    from amaranth_twstft_tpu_torch.models import claudio
+
+    cfg, code, cap = _claudio_fixture(tmp_path)
+    proc = ProcessingConfig(conjugate_data=True, block_seconds=0.5, skip_seconds=0.0)
+    out = {}
+    for dev in ("cpu", cuda):
+        d = tmp_path / str(dev)
+        d.mkdir()
+        out[str(dev)] = claudio.process_file(cap, code, cfg, proc, StationConfig(),
+                                             out_dir=str(d), device=dev,
+                                             transfer="int8")
+    card, cpu = out["cuda"], out["cpu"]
+    assert card["moved"] == cpu["moved"] and len(card["moved"]) >= 2
+    np.testing.assert_array_equal(card["df"], cpu["df"])
+    delay = lambda o: o["indice"] + o["correction"] / 3.0  # noqa: E731
+    assert np.abs(delay(card) - delay(cpu)).max() < CLAUDIO_DELAY_TOL
+    # 2 s less 500 samples: three whole 0.5-s blocks, the short tail dropped
+    assert len(card["timing"]["block_step_ms"]) == 3
+    assert card["timing"]["bytes_shipped"] == 3 * 50_000 * 2
+
+
+def test_claudio_upload_overlap_leaves_results_unchanged(cuda, tmp_path,
+                                                         monkeypatch):
+    """The next block's upload issued before the fetch (prefetch) or only
+    when due: the same bits."""
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, StationConfig
+    from amaranth_twstft_tpu_torch.models import claudio
+
+    cfg, code, cap = _claudio_fixture(tmp_path)
+    proc = ProcessingConfig(conjugate_data=True, block_seconds=0.5, skip_seconds=0.0)
+    out = []
+    for prefetch in (True, False):
+        monkeypatch.setattr(claudio, "_PREFETCH", prefetch)
+        d = tmp_path / str(prefetch)
+        d.mkdir()
+        out.append(claudio.process_file(cap, code, cfg, proc, StationConfig(),
+                                        out_dir=str(d), device=cuda))
+    assert out[0]["moved"] == out[1]["moved"]
+    for k in ("indice", "correction", "xval", "snr_r", "snr_i", "df"):
+        np.testing.assert_array_equal(out[0][k], out[1][k], err_msg=k)
