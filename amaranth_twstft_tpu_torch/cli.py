@@ -1,28 +1,37 @@
 """Command-line interface of the PyTorch port (``twstft-torch``).
 
-Ported verbs so far:
+The JAX package's 14 verbs (``twstft-tpu``), with the same arguments:
 
-- ``dllpll`` — the DLL/PLL multi-channel receiver (``rxcomplex.cpp
-  data.bin`` with ``sdr.param``), through the device-banked receiver;
+- ``prn`` — PRN code file generation / taps search;
 - ``ranging`` — the archived dual-channel chain (``godual_ranging.m``);
 - ``goranging`` — the C++ batch chain (``processing/CPP/main.cpp``:
   ``GoRanging data.bin code.bin [remote] [foffset]``); ``--fast`` runs
-  the IO-overlapped pipeline;
+  the IO-overlapped pipeline, ``--profile LOGDIR`` writes a
+  ``torch.profiler`` Chrome trace of the run;
 - ``claudio`` — the per-code aligned chain (``claudio_*.m``) on one
   single-channel capture;
-- ``batch`` — directory batch processing (``goprocess.sh``);
 - ``gofinal`` — per-record text extraction (``gofinal_ltfb.m``);
 - ``twoway`` — the daily two-way solve of two text tables (``tw.m``);
 - ``go1s`` — a session's four claudio archives -> ``.1s``/``.1sc``
   products (``go_1s.m``);
-- ``campaign`` — campaign series from the go1s summaries.
+- ``campaign`` — campaign series from the go1s summaries;
+- ``dllpll`` — the DLL/PLL multi-channel receiver (``rxcomplex.cpp
+  data.bin`` with ``sdr.param``): the device-banked receiver, or with
+  ``--host`` the host-sequential one; ``--serve PORT`` broadcasts every
+  report to TCP subscribers;
+- ``batch`` — directory batch processing (``goprocess.sh``);
+- ``monitor`` — near-real-time follow of a growing capture (the
+  ``zmq_rx.py`` role), ``--serve`` to broadcast, ``--connect`` to
+  subscribe (``--plot`` draws the live view);
+- ``acquire`` — record an fc32 sample stream to an sc16 capture;
+- ``emit`` — synthesize a capture;
+- ``config`` — dump or validate a TwstftConfig JSON.
 
-``gofinal``, ``twoway``, ``go1s`` and ``campaign`` are host
-post-processing (NumPy) and take no device.  Every other verb runs on the
-card unless ``--device cpu`` is given.  ``dllpll
---host`` (the host-sequential receiver), ``dllpll --serve`` (the TCP
-monitor), ``goranging --sharded`` and ``goranging --profile`` are not
-ported yet and exit with an error.
+``prn``, ``gofinal``, ``twoway``, ``go1s``, ``campaign``, ``acquire``,
+``emit``, ``config`` and ``monitor --connect`` take no device.  Every
+other verb runs on the card unless ``--device cpu`` is given.
+``goranging --sharded`` (the multi-device pipeline) is not ported yet and
+exits with an error.
 """
 
 from __future__ import annotations
@@ -93,7 +102,8 @@ def _ranging_parsers(sub) -> None:
                         "matches the reference's 3x grid, 4 cuts the "
                         "parabola bias (PARITY.md deviation 11)")
     p.add_argument("--profile", metavar="LOGDIR", default=None,
-                   help="profiler trace of the run (not ported yet)")
+                   help="wrap the run in a torch.profiler trace (CPU and "
+                        "CUDA activity; a Chrome trace JSON in LOGDIR)")
     _add_device_arg(p)
 
 
@@ -170,7 +180,8 @@ def _dllpll_parser(sub) -> None:
     p.add_argument("--seconds", type=int, default=0, help="0 = whole file")
     _add_device_arg(p)
     p.add_argument("--host", action="store_true",
-                   help="host-sequential receiver (not ported yet)")
+                   help="force the host-sequential oracle Receiver "
+                        "(default: the device-banked receiver)")
     p.add_argument("--out-dir", default=None,
                    help="write per-channel .dat rows + rxcomplex.log here "
                         "(rxcomplex.cpp:724,736-753)")
@@ -184,8 +195,15 @@ def _dllpll_parser(sub) -> None:
                    help="--follow: seconds without file growth = end of "
                         "acquisition")
     p.add_argument("--serve", type=int, metavar="PORT", default=None,
-                   help="broadcast reports to TCP subscribers (not "
-                        "ported yet)")
+                   help="broadcast per-second tracking reports to TCP "
+                   "subscribers on PORT (the monitor --serve protocol; "
+                   "consume with monitor --connect)")
+    p.add_argument("--serve-min-clients", type=int, default=0, metavar="N",
+                   help="--serve: wait for N subscribers before tracking "
+                   "starts")
+    p.add_argument("--serve-host", default="127.0.0.1",
+                   help="--serve bind address (0.0.0.0 for remote "
+                   "consumers)")
     p.add_argument("--group", type=int, default=8,
                    help="channels per batched lag-bank launch")
     # the reference derives code geometry from an internal PRN table
@@ -200,41 +218,123 @@ def _dllpll_parser(sub) -> None:
                    help="per-PRN taps, e.g. '100=9,101=27'")
 
 
+def _live_parsers(sub) -> None:
+    p = sub.add_parser("monitor", help="near-real-time follow of a growing "
+                       "capture (zmq_rx.py equivalent)")
+    p.add_argument("capture", nargs="?",
+                   help="growing sc16 capture (omit with --connect)")
+    p.add_argument("code", nargs="?",
+                   help="PRN code file (omit with --connect)")
+    _add_signal_args(p)
+    p.add_argument("--channels", type=int, default=2)
+    p.add_argument("--epochs", type=int, default=25,
+                   help="epochs per processing batch (default 1 s)")
+    p.add_argument("--timeout", type=float, default=10.0,
+                   help="stop after this many idle seconds")
+    p.add_argument("--once", action="store_true",
+                   help="process what is there and exit (no tailing)")
+    p.add_argument("--serve", type=int, metavar="PORT", default=None,
+                   help="also broadcast rows + decimated spectra to TCP "
+                   "subscribers on PORT (0 = ephemeral; the ZMQ pub role "
+                   "of x310_twstft_gr.py)")
+    p.add_argument("--connect", metavar="HOST:PORT", default=None,
+                   help="subscribe to a --serve producer and print its "
+                   "rows (the zmq_rx.py consumer role); no processing "
+                   "happens locally")
+    p.add_argument("--plot", action="store_true",
+                   help="--connect: render the live view (spectra + "
+                   "delay/SNR tracks, the zmq_rx.py Qt GUI role) with "
+                   "matplotlib instead of printing rows; headless hosts "
+                   "get a refreshing PNG snapshot (--plot-file)")
+    p.add_argument("--plot-file", default="monitor_live.png",
+                   help="--plot: snapshot path (default %(default)s)")
+    p.add_argument("--plot-interactive", action="store_true",
+                   help="--plot: open a live matplotlib window instead "
+                   "of writing snapshots (needs a display)")
+    p.add_argument("--serve-min-clients", type=int, default=0,
+                   metavar="N", help="--serve: wait for N subscribers "
+                   "before processing starts (scripted/batch use where "
+                   "consumers must not miss the head of the stream)")
+    p.add_argument("--serve-host", default="127.0.0.1",
+                   help="--serve bind address (0.0.0.0 for remote "
+                   "consumers, the zmq_rx.py use case)")
+    _add_device_arg(p)
+
+    p = sub.add_parser(
+        "acquire", help="record an fc32 sample stream to an sc16 capture "
+        "(the b210_file.py flowgraph stages: interleave, x32767, "
+        "complex-to-ishort, head)"
+    )
+    p.add_argument("output", help="sc16 capture file")
+    p.add_argument("--from", dest="source", default="-",
+                   help="byte source: '-' stdin (default), tcp:HOST:PORT, "
+                   "or a file/FIFO path")
+    p.add_argument("--fs", type=float, default=5e6)
+    p.add_argument("--seconds", type=float, default=185.0,
+                   help="head bound (fs*seconds frames; b210_file.py "
+                   "records 185 s)")
+    p.add_argument("--channels", type=int, default=2)
+    p.add_argument("--scale", type=float, default=32767.0)
+
+
+def _tool_parsers(sub) -> None:
+    p = sub.add_parser("prn", help="generate PRN code files / search taps")
+    p.add_argument("--bitlen", type=int, required=True)
+    p.add_argument("--noiselen", type=int)
+    p.add_argument("--taps", type=int)
+    p.add_argument("--taps-b", type=int)
+    p.add_argument("--search", type=int, metavar="N",
+                   help="search the first N maximal-length taps")
+    p.add_argument("-o", "--output")
+
+    p = sub.add_parser("emit", help="synthesize a capture (FPGA TX chain + "
+                       "channel simulation at baseband)")
+    p.add_argument("output", help="sc16 output file")
+    _add_signal_args(p)
+    p.add_argument("--seconds", type=int, default=1)
+    p.add_argument("--delay", type=float, default=0.0, help="samples")
+    p.add_argument("--doppler", type=float, default=0.0, help="Hz")
+    p.add_argument("--amplitude", type=float, default=1000.0)
+    p.add_argument("--noise", type=float, default=100.0)
+    p.add_argument("--delay2", type=float, help="2nd channel delay (samples)")
+    p.add_argument("--doppler2", type=float, default=0.0)
+    p.add_argument("--qpsk", action="store_true")
+    p.add_argument("--taps-b", type=int, help="QPSK second LFSR taps")
+    p.add_argument("--timecode", choices=["off", "invert", "timecode"],
+                   default="off")
+    p.add_argument("--seed", type=int, default=0)
+
+    p = sub.add_parser("config", help="dump or round-trip a config JSON")
+    p.add_argument("--load")
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="twstft-torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
+    _tool_parsers(sub)
     _dllpll_parser(sub)
     _ranging_parsers(sub)
     _claudio_parsers(sub)
     _twoway_parsers(sub)
+    _live_parsers(sub)
     args = parser.parse_args(argv)
-    if args.cmd == "dllpll":
-        if args.host:
-            parser.error("dllpll --host: the host-sequential receiver is "
-                         "not ported yet")
-        if args.serve is not None:
-            parser.error("dllpll --serve: the report server is not ported "
-                         "yet")
-        return _dllpll(args)
-    if args.cmd == "ranging":
-        return _ranging(args)
     if args.cmd == "goranging":
         if args.sharded:
             parser.error("goranging --sharded: the multi-device pipeline is "
                          "not ported yet")
-        if args.profile:
-            parser.error("goranging --profile: the profiler trace is not "
-                         "ported yet")
-        return _goranging(args)
-    verbs = {"claudio": _claudio, "batch": _batch, "gofinal": _gofinal,
-             "twoway": _twoway, "go1s": _go1s, "campaign": _campaign}
-    if args.cmd in verbs:
-        return verbs[args.cmd](args)
-    parser.error(f"unknown command {args.cmd}")
-    return 2
+        from amaranth_twstft_tpu_torch.utils.profiling import trace
+
+        with trace(args.profile):
+            return _goranging(args)
+    verbs = {"prn": _prn, "dllpll": _dllpll, "ranging": _ranging,
+             "claudio": _claudio, "batch": _batch, "gofinal": _gofinal,
+             "twoway": _twoway, "go1s": _go1s, "campaign": _campaign,
+             "monitor": _monitor, "acquire": _acquire, "emit": _emit,
+             "config": _config}
+    return verbs[args.cmd](args)
 
 
 def _dtype(args):
@@ -396,7 +496,11 @@ def _campaign(args) -> int:
 
 
 def _dllpll(args) -> int:
-    from amaranth_twstft_tpu_torch.models.dllpll import parse_sdr_param
+    from amaranth_twstft_tpu_torch.models.dllpll import (
+        Receiver,
+        dat_filename,
+        parse_sdr_param,
+    )
     from amaranth_twstft_tpu_torch.models.tracker import (
         BankedReceiver,
         MultiBankReceiver,
@@ -421,25 +525,30 @@ def _dllpll(args) -> int:
             )
             for c in chans
         ]
-    # one banked receiver per homogeneous channel geometry
+    # the device-banked receiver (one receiver per homogeneous channel
+    # geometry) unless --host forces the sequential oracle
     geoms = {
         (int(round(args.fs / c.chip_rate)) * c.code_len,
          c.codes_per_second, c.nlag)
         for c in chans
     }
+    use_bank = not args.host
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
-    if len(geoms) > 1:
-        print(
-            f"{len(geoms)} channel geometries: one banked pass per group "
-            "(MultiBankReceiver)",
-            file=sys.stderr,
+    if not use_bank:
+        rx = Receiver(chans, fs=args.fs, device=args.device)
+    else:
+        if len(geoms) > 1:
+            print(
+                f"{len(geoms)} channel geometries: one banked pass per group "
+                "(MultiBankReceiver)",
+                file=sys.stderr,
+            )
+        cls = BankedReceiver if len(geoms) == 1 else MultiBankReceiver
+        rx = cls(
+            chans, fs=args.fs, group=args.group, real_input=args.real,
+            out_dir=args.out_dir, device=args.device,
         )
-    cls = BankedReceiver if len(geoms) == 1 else MultiBankReceiver
-    rx = cls(
-        chans, fs=args.fs, group=args.group, real_input=args.real,
-        out_dir=args.out_dir, device=args.device,
-    )
 
     fs = int(args.fs)
     # each tracked second wants fs + nobs samples (the receivers pad a
@@ -478,27 +587,293 @@ def _dllpll(args) -> int:
             yield sec
             s += 1
 
+    server = None
+    if args.serve is not None:
+        from amaranth_twstft_tpu_torch.utils.stream import MonitorServer
+
+        server = MonitorServer(
+            host=args.serve_host, port=args.serve,
+            hello={"fs": args.fs, "mode": "dllpll", "channels": len(chans),
+                   "capture": os.path.basename(args.capture)},
+        )
+        print(f"# serving on {server.host}:{server.port}", flush=True)
+
     def emit(sec_idx, reports):
         for ch, rep in zip(rx.channels, reports):
             if rep is None:
                 continue
+            if server is not None:
+                server.publish({
+                    "type": "track", "second": sec_idx,
+                    "physical": ch.cfg.physical,
+                    "prn": int(ch.cfg.prn_id),
+                    "fc_hz": round(float(rep.fc_hz), 6),
+                    "phi_cycles": round(float(rep.phi_cycles), 8),
+                    "cnt": int(rep.cnt),
+                    "gd_ns": round(float(rep.gd_ns), 6),
+                    "dg_ns_per_s": round(float(rep.dg_ns_per_s), 6),
+                    "sdgd_ns": round(float(rep.sdgd_ns), 4),
+                    "pk_dbm": round(float(rep.pk_dbm), 3),
+                    "pnoise_dbm": round(float(rep.pnoise_dbm), 3),
+                })
             print(
                 f"{sec_idx} {ch.cfg.physical} PRN{ch.cfg.prn_id} "
                 f"{rep.fc_hz:14.6f} {rep.phi_cycles:11.8f} "
                 f"{rep.cnt:3d} {rep.gd_ns:14.6f} {rep.dg_ns_per_s:11.6f} "
                 f"{rep.sdgd_ns:8.4f} {rep.pk_dbm:7.3f} {rep.pnoise_dbm:7.3f}"
             )
+            if args.out_dir and not use_bank:
+                # the banked receiver writes its own .dat rows
+                with open(os.path.join(args.out_dir, dat_filename(ch.cfg)),
+                          "a") as f:
+                    f.write(rep.row(ch.nobs / args.fs) + "\n")
 
-    if len(geoms) == 1:
-        # prefetching stream driver: second s+1's upload is queued before
-        # second s is processed (run_stream serializes SIC configs itself)
-        for s_idx, reports in enumerate(rx.run_stream(seconds_gen())):
-            emit(s_idx, reports)
+    try:
+        if server is not None and args.serve_min_clients:
+            t0 = time.time()
+            while (server.n_clients < args.serve_min_clients
+                   and time.time() - t0 < args.idle_timeout + 30.0):
+                time.sleep(0.05)
+        if use_bank and len(geoms) == 1:
+            # prefetching stream loop: second s+1's upload runs on a
+            # copy stream beside second s's compute (run_stream
+            # serializes SIC configs itself)
+            for s_idx, reports in enumerate(rx.run_stream(seconds_gen())):
+                emit(s_idx, reports)
+        else:
+            # host oracle / heterogeneous MultiBank: sequential
+            for s_idx, sec in enumerate(seconds_gen()):
+                emit(s_idx, rx.process_second(sec))
+        if args.out_dir and not use_bank:
+            with open(os.path.join(args.out_dir, "rxcomplex.log"), "a") as f:
+                for line in rx.log:
+                    f.write(line + "\n")
+        for line in rx.log:
+            print(line, file=sys.stderr)
+    finally:
+        if server is not None:
+            server.close()
+    return 0
+
+
+def _prn(args) -> int:
+    from amaranth_twstft_tpu_torch.ops.lfsr import (
+        find_mseq_taps,
+        prn_default_filename,
+        write_prn_file,
+    )
+
+    if args.search:
+        for t in find_mseq_taps(args.bitlen, args.search):
+            print(t)
+        return 0
+    if args.taps is None or args.noiselen is None:
+        print("need --taps and --noiselen (or --search)", file=sys.stderr)
+        return 2
+    out = args.output or prn_default_filename(
+        args.bitlen, args.noiselen, args.taps, args.taps_b
+    )
+    write_prn_file(out, args.bitlen, args.noiselen, args.taps, args.taps_b)
+    print(out)
+    return 0
+
+
+def _print_track_msg(msg: dict) -> None:
+    """One ``dllpll --serve`` report as the dllpll verb prints it."""
+    print(
+        f"{msg['second']} {msg['physical']} PRN{msg['prn']} "
+        f"{msg['fc_hz']:14.6f} {msg['phi_cycles']:11.8f} {msg['cnt']:3d} "
+        f"{msg['gd_ns']:14.6f} {msg['dg_ns_per_s']:11.6f} "
+        f"{msg['sdgd_ns']:8.4f} {msg['pk_dbm']:7.3f} {msg['pnoise_dbm']:7.3f}",
+        flush=True,
+    )
+
+
+def _monitor_connect(args) -> int:
+    """The consumer role (``zmq_rx.py``): print or plot a producer's
+    messages; no processing happens locally."""
+    from amaranth_twstft_tpu_torch.utils.stream import connect_monitor
+
+    host, _, port = args.connect.rpartition(":")
+    if not port.isdigit():
+        print(f"monitor --connect: expected HOST:PORT, got {args.connect!r}",
+              flush=True)
+        return 2
+    msgs = connect_monitor(host or "127.0.0.1", int(port),
+                           timeout_s=args.timeout + 30.0)
+    try:
+        if args.plot:
+            # live view (the zmq_rx.py Qt GUI role)
+            from amaranth_twstft_tpu_torch.utils.plotview import LiveMonitorPlot
+
+            view = LiveMonitorPlot(
+                interactive=args.plot_interactive,
+                save_path=None if args.plot_interactive else args.plot_file,
+            )
+            out = view.run(msgs)
+            if out:
+                print(out, flush=True)
+            return 0
+        print("# epoch ch delay_samp df_hz snr_db cn0_dbhz "
+              "| track: s phys PRN fc phi cnt gd dg sdgd Pk Pn", flush=True)
+        for msg in msgs:
+            if msg.get("type") == "row":
+                print(f"{msg['epoch']:6d} {msg['ch']} "
+                      f"{msg['delay_samp']:12.4f} {msg['df_hz']:9.2f} "
+                      f"{msg['snr_db']:7.2f} {msg['cn0_dbhz']:6.2f}",
+                      flush=True)
+            elif msg.get("type") == "track":
+                _print_track_msg(msg)
+    except (ConnectionRefusedError, ConnectionResetError) as e:
+        # consumers routinely start before/around producers
+        print(f"monitor --connect: {e} (is the producer --serve-ing on "
+              f"{args.connect}?)", flush=True)
+        return 1
+    except (TimeoutError, OSError) as e:
+        print(f"monitor --connect: {e}", flush=True)
+        return 1
+    return 0
+
+
+def _monitor(args) -> int:
+    if args.connect:
+        return _monitor_connect(args)
+    if not args.capture or not args.code:
+        print("monitor: capture and code are required unless --connect",
+              flush=True)
+        return 2
+    import torch
+
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig
+    from amaranth_twstft_tpu_torch.models.godual import build_replica
+    from amaranth_twstft_tpu_torch.models.twoway import cn0_dbhz
+    from amaranth_twstft_tpu_torch.ops import boundary, doppler
+    from amaranth_twstft_tpu_torch.pipeline import follow_capture
+    from amaranth_twstft_tpu_torch.utils.platform import resolve_device
+
+    sig = _signal(args)
+    dev = resolve_device(args.device)
+    rep = build_replica(args.code, sig, ProcessingConfig())
+    mask = doppler.window_mask(sig.samples_per_code, sig.fs, -20e3, 20e3)
+    # the complex64 epochs go to the step as they are (the JAX package's
+    # pack_complex relay boundary is not carried over); one packed fetch
+    # per batch
+    step = boundary.make_ranging_step(rep.fcode, rep.code_interp, mask, sig.fs,
+                                      packed=True, device=dev)
+    server = None
+    if args.serve is not None:
+        from amaranth_twstft_tpu_torch.utils.stream import (
+            MonitorServer,
+            spectrum_summary,
+        )
+
+        server = MonitorServer(
+            host=args.serve_host, port=args.serve,
+            hello={"fs": sig.fs, "channels": args.channels,
+                   "capture": os.path.basename(args.capture)},
+        )
+        print(f"# serving on {server.host}:{server.port}", flush=True)
+    try:
+        if server is not None and args.serve_min_clients:
+            t0 = time.time()
+            while (server.n_clients < args.serve_min_clients
+                   and time.time() - t0 < args.timeout + 30.0):
+                time.sleep(0.05)
+        print("# epoch ch delay_samp df_hz snr_db cn0_dbhz", flush=True)
+        for epoch0, ch, iq in follow_capture(
+            args.capture, sig, channels=args.channels,
+            epochs_per_batch=args.epochs, timeout_s=args.timeout,
+            stop_when_idle=args.once,
+        ):
+            out = boundary.unpack_outputs(
+                step(torch.from_numpy(iq).to(dev)).cpu().numpy())
+            delay = out.delay_samples()
+            snr = out.snr_db()
+            cn0 = cn0_dbhz(out.snr_r, out.snr_i, sig.fs)
+            for i in range(len(delay)):
+                print(f"{epoch0 + i:6d} {ch} {delay[i]:12.4f} "
+                      f"{out.df[i]:9.2f} {snr[i]:7.2f} {cn0:6.2f}", flush=True)
+                if server is not None:
+                    server.publish({
+                        "type": "row", "epoch": int(epoch0 + i), "ch": int(ch),
+                        "delay_samp": round(float(delay[i]), 4),
+                        "df_hz": round(float(out.df[i]), 2),
+                        "snr_db": round(float(snr[i]), 2),
+                        "cn0_dbhz": round(float(cn0), 2),
+                    })
+            if server is not None:
+                bins, flo, fhi = spectrum_summary(iq, sig.fs)
+                server.publish({
+                    "type": "spectrum", "epoch": int(epoch0), "ch": int(ch),
+                    "bins_db": bins, "f_lo_hz": flo, "f_hi_hz": fhi,
+                })
+    finally:
+        if server is not None:
+            server.close()
+    return 0
+
+
+def _acquire(args) -> int:
+    from amaranth_twstft_tpu_torch.utils.recorder import (
+        open_source,
+        record_fc32_stream,
+    )
+
+    src = open_source(args.source)
+    try:
+        n = record_fc32_stream(src, args.output, args.fs, args.seconds,
+                               channels=args.channels, scale=args.scale)
+    finally:
+        if src is not sys.stdin.buffer:
+            src.close()
+    print(json.dumps({"frames": n, "seconds": n / args.fs,
+                      "path": args.output}))
+    return 0 if n > 0 else 1
+
+
+def _emit(args) -> int:
+    from amaranth_twstft_tpu_torch.config import Modulation, TimeCoderMode
+    from amaranth_twstft_tpu_torch.models.emitter import (
+        ChannelSim,
+        synthesize_capture,
+    )
+    from amaranth_twstft_tpu_torch.utils import io as uio
+
+    tc = {"off": TimeCoderMode.OFF, "invert": TimeCoderMode.INVERT_FIRST_CODE,
+          "timecode": TimeCoderMode.TIMECODE}[args.timecode]
+    sig = dataclasses.replace(
+        _signal(args),
+        modulation=Modulation.QPSK if args.qpsk else Modulation.BPSK,
+        taps_b=args.taps_b, timecoder=tc,
+    )
+    chans = [ChannelSim(delay_samples=args.delay, doppler_hz=args.doppler,
+                        amplitude=args.amplitude, noise_sigma=args.noise)]
+    if args.delay2 is not None:
+        chans.append(ChannelSim(delay_samples=args.delay2,
+                                doppler_hz=args.doppler2,
+                                amplitude=args.amplitude,
+                                noise_sigma=args.noise))
+    streams = synthesize_capture(sig, chans, n_seconds=args.seconds,
+                                 seed=args.seed)
+    uio.write_sc16(args.output, *streams)
+    print(args.output)
+    return 0
+
+
+def _config(args) -> int:
+    from amaranth_twstft_tpu_torch.config import TwstftConfig
+
+    if args.load:
+        try:
+            with open(args.load) as f:
+                cfg = TwstftConfig.from_json(f.read())
+        except (OSError, ValueError, TypeError) as e:
+            print(f"invalid config {args.load}: {e}", file=sys.stderr)
+            return 1
+        print(f"ok hash={cfg.config_hash()}", file=sys.stderr)
+        print(cfg.to_json())
     else:
-        for s_idx, sec in enumerate(seconds_gen()):
-            emit(s_idx, rx.process_second(sec))
-    for line in rx.log:
-        print(line, file=sys.stderr)
+        print(TwstftConfig().to_json())
     return 0
 
 

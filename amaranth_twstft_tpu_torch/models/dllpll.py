@@ -1,11 +1,15 @@
-"""Multi-channel DLL/PLL tracking receiver — host parts (NumPy + torch).
+"""Multi-channel DLL/PLL tracking receiver (NumPy + torch).
 
 The port's counterpart of the JAX package's ``models/dllpll.py``: channel
 configuration and ``sdr.param`` parsing, the replica bank build (with the
 same ``TWSTFT_BANK_CACHE`` disk cache), the per-channel tracking state,
-the reference's output rows and log lines, and the BPSK half-cycle phase
-unwrap.  Behavioral spec: ``experiments/231001_DLL_PLL/rxcomplex.cpp``
-(see the JAX module's docstring for the line map).
+the reference's output rows and log lines, the BPSK half-cycle phase
+unwrap, and the host-sequential :class:`Receiver` (``dllpll --host``, the
+oracle of the banked receiver): acquisition by the dense CAF
+(:mod:`amaranth_twstft_tpu_torch.ops.caf`), tracking through the explicit
+(K, NL) form of the lag-bank kernel.  Behavioral spec:
+``experiments/231001_DLL_PLL/rxcomplex.cpp`` (see the JAX module's
+docstring for the line map).
 
 The device-batched bank that uses these parts is
 :mod:`amaranth_twstft_tpu_torch.models.tracker`.
@@ -13,17 +17,28 @@ The device-batched bank that uses these parts is
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from amaranth_twstft_tpu_torch.ops.caf import caf_search
+from amaranth_twstft_tpu_torch.ops.correlator import quick_xcorr_snr
+from amaranth_twstft_tpu_torch.ops.doppler import squaring_df, window_mask
+from amaranth_twstft_tpu_torch.ops.lagbank import lag_bank_correlate
 from amaranth_twstft_tpu_torch.ops.lfsr import prn_chips, prn_chips_batch
+from amaranth_twstft_tpu_torch.ops.peaks import (
+    hrc_correction,
+    median_iqr_sigma,
+    weighted_linear_fit,
+)
 from amaranth_twstft_tpu_torch.ops.prn import (
     chips_to_pm1,
     lowpass_spectrum_mask,
     upsample_zoh,
 )
+from amaranth_twstft_tpu_torch.utils.platform import resolve_device
 
 __all__ = [
     "ChannelConfig",
@@ -31,6 +46,7 @@ __all__ = [
     "build_channel",
     "build_channels_batch",
     "TrackState",
+    "Receiver",
     "SecondReport",
     "parse_sdr_param",
     "dat_filename",
@@ -144,6 +160,19 @@ class Channel:
     psbb: float  # replica baseband power (rxcomplex.cpp:437-438)
     chips: np.ndarray | None = None  # raw 0/1 chips (code_len,) int8
     sps_per_chip: int = 1
+    _code_interp: np.ndarray | None = None
+
+    @property
+    def code_interp(self) -> np.ndarray:
+        """3x-interpolated unfiltered code, built on first use (only the
+        host acquisition path needs it; the 120-channel bank never
+        materializes 120 x 3 x nobs floats)."""
+        if self._code_interp is None:
+            code = chips_to_pm1(
+                upsample_zoh(self.chips, self.sps_per_chip), np.float64
+            )
+            self._code_interp = np.repeat(code, 3).astype(np.float32)
+        return self._code_interp
 
 
 def build_channel(cfg: ChannelConfig, fs: float) -> Channel:
@@ -458,3 +487,410 @@ def _phase_unwrap_scan(
         out[..., p] = torch.where(keep, folded, phi)
         last = torch.where(keep, folded, last)
     return out
+
+
+def _lag_bank_correlate(obs_ri: torch.Tensor, wav_lags: torch.Tensor):
+    """The lag-bank correlation of one channel's second: ``obs_ri`` (2,
+    codes, nobs) float32 (re, im) against ``wav_lags`` (nobs, nlags)
+    float32 -> power and phase (codes, nlags).  The reference performs the
+    same contraction with one DGEMM over an interleaved re/im observation
+    matrix (``rxcomplex.cpp:605``); on a CUDA tensor this is the explicit
+    (K, NL) form of the hand-written kernel (``csrc/lagbank.cu``), on a CPU
+    tensor its plain version."""
+    return lag_bank_correlate(obs_ri, wav_lags)
+
+
+def _complex(x: np.ndarray) -> np.ndarray:
+    """Real samples (``rx.cpp`` mode) as complex of the same precision."""
+    if np.iscomplexobj(x):
+        return x
+    return x.astype(np.complex64 if x.dtype == np.float32 else np.complex128)
+
+
+def _channel_from(c: dict) -> Channel:
+    """A :class:`Channel` from another receiver's channel replica: a dict
+    of the :class:`Channel` fields as numpy, ``cfg`` as a dict of the
+    :class:`ChannelConfig` fields."""
+    return Channel(
+        cfg=ChannelConfig(**c["cfg"]),
+        nobs=int(c["nobs"]),
+        wav=np.asarray(c["wav"], np.float32),
+        fcode=np.asarray(c["fcode"]),
+        psbb=float(c["psbb"]),
+        chips=np.asarray(c["chips"]),
+        sps_per_chip=int(c["sps_per_chip"]),
+    )
+
+
+class Receiver:
+    """File-level multi-channel receiver (one second of IQ at a time): the
+    host-sequential oracle that the banked receiver is checked against
+    (``dllpll --host``).
+
+    Per channel per second: the acquisition (dense CAF, the trial-
+    correlation SNR gate, the whole-second squaring-FFT fine frequency)
+    or the tracking (float64 host LO, the lag bank, peak-quality and
+    3-sigma gates, HRC, BPSK unwrap, the two weighted fits).  The CAF, the
+    squaring FFT and the lag bank run on ``device`` (default ``cuda``; the
+    lag bank launches the kernel there or raises), in the dtype of the
+    samples the caller passes; the LO stays float64 on the host, and the
+    gates, fits and unwrap run on the host as the JAX package's do.
+    """
+
+    def __init__(self, channels: list[ChannelConfig], fs: float = 5e6, *,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.fs = fs
+        self.channels = [build_channel(c, fs) for c in channels]
+        self.states = [TrackState(fc=c.fc_init_hz) for c in channels]
+        self._wav_lags: dict[int, torch.Tensor] = {}
+        self.log: list[str] = []
+        self._sic_snapshot = [(s.pt, s.fc, s.df) for s in self.states]
+        self._acq_attempt = 0  # probe-epoch diversity counter
+
+    @classmethod
+    def from_reference(
+        cls,
+        channels: list[dict],
+        states: list[dict],
+        acq_attempt: int,
+        fs: float = 5e6,
+        *,
+        device: str | torch.device | None = None,
+    ) -> "Receiver":
+        """A receiver holding exactly another receiver's replicas and
+        state: ``channels`` one dict of :class:`Channel` fields per channel
+        (numpy arrays), ``states`` one dict of :class:`TrackState` fields,
+        ``acq_attempt`` the probe-epoch counter.  Used to start the port
+        and the JAX package from identical state mid-track."""
+        if len(channels) != len(states):
+            raise ValueError("channels and states disagree on the count")
+        rx = cls.__new__(cls)
+        rx.device = resolve_device(device)
+        rx.fs = fs
+        rx.channels = [_channel_from(c) for c in channels]
+        rx.states = [TrackState(**s) for s in states]
+        rx._wav_lags = {}
+        rx.log = []
+        rx._sic_snapshot = [(s.pt, s.fc, s.df) for s in rx.states]
+        rx._acq_attempt = int(acq_attempt)
+        return rx
+
+    def _lag_matrix(self, i: int) -> torch.Tensor:
+        """(nobs, 2*nlag+1) float32 shifted replicas of channel ``i`` on
+        the receiver's device, built once (45.6 MB at production)."""
+        if i not in self._wav_lags:
+            ch = self.channels[i]
+            lags = np.arange(-ch.cfg.nlag, ch.cfg.nlag + 1)
+            w = np.stack([np.roll(ch.wav, lag) for lag in lags], axis=1)
+            self._wav_lags[i] = torch.from_numpy(w).to(self.device)
+        return self._wav_lags[i]
+
+    # ------------------------------------------------------------------
+    def process_second(self, iq_by_phys: dict[str, np.ndarray]) -> list[SecondReport | None]:
+        """Process one second of samples for every channel.
+
+        ``iq_by_phys``: physical channel name -> complex array of at least
+        fs samples (+ one code period of lookahead recommended).
+        """
+        # second-start snapshot of every channel's code head / carrier —
+        # the reference's ``pt_prev`` semantics (``rxcomplex.cpp:513``):
+        # SIC reconstruction must use the alignment the interferer had for
+        # THIS second's samples
+        self._sic_snapshot = [(s.pt, s.fc, s.df) for s in self.states]
+        # probe-epoch diversity (rxcomplex.cpp:529 picks a random epoch):
+        # one shared probe epoch per second for all cold channels,
+        # advanced by a stride coprime to the codes-per-second count
+        if any(
+            not st.is_trk and iq_by_phys.get(ch.cfg.physical) is not None
+            for ch, st in zip(self.channels, self.states)
+        ):
+            self._acq_attempt += 1
+        reports: list[SecondReport | None] = []
+        for i, (ch, st) in enumerate(zip(self.channels, self.states)):
+            smp = iq_by_phys.get(ch.cfg.physical)
+            if smp is None:
+                reports.append(None)
+                continue
+            if ch.cfg.is_sic:
+                smp = self._mai_free(i, smp)
+            if not st.is_trk:
+                reports.append(self._acquire(i, smp))
+            else:
+                reports.append(self._track(i, smp))
+        return reports
+
+    # ------------------------------------------------------------------
+    def reload_params(self, text: str) -> list[int]:
+        """Hot-reload ``sdr.param`` with the reference's per-second change
+        detection (``rxcomplex.cpp:257-285``): a row that still matches its
+        channel keeps the channel's tracking state; a changed row (or a new
+        position) re-initializes that channel, forcing re-acquisition.
+        Returns the indices of re-initialized channels.
+        """
+        known = {c.cfg.prn_id: c.cfg for c in self.channels}
+        new_cfgs = parse_sdr_param(text)
+        changed: list[int] = []
+        for i, cfg in enumerate(new_cfgs):
+            if i < len(self.channels) and _param_matches(
+                self.channels[i].cfg, cfg
+            ):
+                continue
+            base = known.get(
+                cfg.prn_id, self.channels[0].cfg if self.channels else None
+            )
+            if base is not None:
+                cfg = _merge_param_row(base, cfg)
+            if i < len(self.channels):
+                self.channels[i] = build_channel(cfg, self.fs)
+                self.states[i] = TrackState(fc=cfg.fc_init_hz)
+                self._wav_lags.pop(i, None)
+            else:
+                self.channels.append(build_channel(cfg, self.fs))
+                self.states.append(TrackState(fc=cfg.fc_init_hz))
+            changed.append(i)
+        if len(new_cfgs) < len(self.channels):
+            changed.extend(range(len(new_cfgs), len(self.channels)))
+            del self.channels[len(new_cfgs):]
+            del self.states[len(new_cfgs):]
+            self._wav_lags = {
+                k: v for k, v in self._wav_lags.items() if k < len(new_cfgs)
+            }
+        self._sic_snapshot = [(s.pt, s.fc, s.df) for s in self.states]
+        return changed
+
+    # ------------------------------------------------------------------
+    def _mai_free(self, i: int, smp: np.ndarray) -> np.ndarray:
+        """Successive interference cancellation for a SIC-flagged channel
+        (host NumPy, as the JAX package's).
+
+        The reference scaffolds this as ``MAI_up``/``MAI_out``
+        (``rxcomplex.cpp:506-520``, disabled in the shipped build): rebuild
+        every *tracked, non-SIC, non-first-second* co-channel signal from
+        its current track state and subtract it before processing.  Each
+        interferer is reconstructed as ``a_c * code((n - pt) mod nobs) *
+        exp(j 2 pi (fc+df) n / fs)`` with one complex amplitude ``a_c`` per
+        code period estimated by projection.
+        """
+        ch_i = self.channels[i]
+        out = smp
+        for k, (ch, st) in enumerate(zip(self.channels, self.states)):
+            if (
+                k == i
+                or ch.cfg.physical != ch_i.cfg.physical
+                or ch.cfg.is_sic
+                or not st.is_trk
+                or st.is_first
+            ):
+                continue
+            pt_k, fc_k, df_k = self._sic_snapshot[k]
+            n = np.arange(len(smp), dtype=np.float64)
+            code = ch.wav.astype(np.float64)[
+                (np.arange(len(smp)) - pt_k) % ch.nobs
+            ]
+            f = (fc_k + df_k) / self.fs
+            rep = code * np.exp(2j * np.pi * np.mod(f * n, 1.0))
+            nblk = len(smp) // ch.nobs
+            if nblk == 0:
+                # shorter-than-one-code final segment: no per-code
+                # amplitude can be estimated — skip this interferer
+                continue
+            m = nblk * ch.nobs
+            rb = rep[:m].reshape(nblk, ch.nobs)
+            sb = np.asarray(smp[:m], dtype=np.complex128).reshape(nblk, ch.nobs)
+            denom = np.sum(np.abs(rb) ** 2, axis=1)
+            a = np.sum(np.conj(rb) * sb, axis=1) / np.maximum(denom, 1e-30)
+            if out is smp:
+                out = smp.astype(np.complex128, copy=True)
+            out[:m] -= (a[:, None] * rb).ravel()
+            if m < len(smp):
+                out[m:] -= a[-1] * rep[m:]
+            self.log.append(
+                f"SIC         : Ch. {ch_i.cfg.physical}, PRN#{ch_i.cfg.prn_id:2d} "
+                f"- PRN#{ch.cfg.prn_id:2d}, |a| = {float(np.abs(a).mean()):.1f}"
+            )
+        return out
+
+    # ------------------------------------------------------------------
+    def _acquire(self, i: int, smp: np.ndarray) -> SecondReport | None:
+        ch, st = self.channels[i], self.states[i]
+        cfg = ch.cfg
+        dev = self.device
+        # one code period somewhere in the second: deterministic rotation
+        # of the probe epoch across attempts (the reference picks a
+        # random epoch each second, :529)
+        bps = max(1, min(len(smp), int(self.fs)) // ch.nobs)
+        stride = max(1, bps // 3)
+        while math.gcd(stride, bps) != 1:
+            stride += 1
+        start = ((bps // 2 + (self._acq_attempt - 1) * stride) % bps) * ch.nobs
+        d = _complex(smp[start : start + ch.nobs])
+        if len(d) < ch.nobs:
+            return None
+        d_t = torch.from_numpy(np.ascontiguousarray(d[None, :])).to(dev)
+        cdt = d_t.dtype
+        res = caf_search(
+            d_t,
+            torch.from_numpy(ch.fcode).to(dev, cdt),
+            torch.from_numpy(ch.code_interp).to(dev),
+            self.fs,
+            cfg.fc_init_hz - cfg.acq_range_hz,
+            cfg.fc_init_hz + cfg.acq_range_hz,
+            cfg.acq_step_hz,
+            refine=True,
+        )
+        df_caf = float(res.df_hz[0])
+        # acquisition gate on the correlation-peak SNR (peak^2 over the
+        # correlation-floor variance), the reference's power test (:573)
+        # mapped onto claudio's detection statistic
+        # (claudio_...separate.m:42); quick_xcorr_snr takes the
+        # unconjugated code spectrum, ch.fcode is the conjugated one
+        qs = float(quick_xcorr_snr(
+            torch.from_numpy((d - d.mean())[None, :]).to(dev),
+            torch.from_numpy(np.conj(ch.fcode)).to(dev, cdt),
+            torch.tensor(df_caf, dtype=torch.float64, device=dev),
+            self.fs,
+        ).reshape(-1)[0])
+        snr_db = 10.0 * np.log10(max(qs, 1e-12))
+        pk = float(torch.abs(res.epoch.xval[0])) ** 2
+        if snr_db < cfg.snr_min_db:
+            self.log.append(log_line("acq failed  ", cfg, 0, cfg.codes_per_second))
+            return None
+        ind = int(res.epoch.indice[0]) // 3  # non-interp grid
+        st.fc = df_caf
+        # fine frequency: squaring-FFT line at 2*fc over the whole second
+        # (sub-Hz, like the reference's halving-to-<1 Hz refinement,
+        # rxcomplex.cpp:560-568 — dense instead of iterative); required
+        # for pull-in: tracking unwraps phase only within 0.25 cycle/code
+        nsec = (len(smp) // ch.nobs) * ch.nobs
+        span = 2.0 * max(cfg.acq_step_hz, 4.0)
+        mask = window_mask(nsec, self.fs, 2 * st.fc - span, 2 * st.fc + span)
+        if mask.any():
+            sec = _complex(smp[:nsec])
+            dsec = sec - sec.mean()
+            fine, _ = squaring_df(torch.from_numpy(dsec).to(dev), self.fs,
+                                  torch.from_numpy(mask).to(dev))
+            st.fc = float(fine)
+        st.pt = int((start + ind) % ch.nobs)
+        st.gd = st.pt * 1e9 / self.fs
+        st.is_trk = True
+        st.is_first = True
+        st.pk = pk
+        self.log.append(
+            f"acquisition : Ch. {cfg.physical}, PRN#{cfg.prn_id:2d}, "
+            f"fc = {st.fc:.0f}, pt = {st.pt}"
+        )
+        return None
+
+    # ------------------------------------------------------------------
+    def _track(self, i: int, smp: np.ndarray) -> SecondReport | None:
+        ch, st = self.channels[i], self.states[i]
+        cfg = ch.cfg
+        bps = cfg.codes_per_second
+        ncodes = bps - 1  # the reference tracks bps-1 codes (:605)
+        nlag = cfg.nlag
+        need = st.pt + ncodes * ch.nobs
+        if need > len(smp):
+            st.is_trk = False
+            return None
+
+        seg = smp[st.pt : need]
+        # carrier-phase-continuous downconversion (:592-600): phase offset
+        # phi = frac(pt * fc / fs), float64 on the host
+        phi0 = np.mod(st.pt * st.fc / self.fs, 1.0)
+        n = np.arange(len(seg), dtype=np.float64)
+        lo = np.exp(-2j * np.pi * (np.mod(st.fc / self.fs * n, 1.0) + phi0))
+        obs = (seg * lo).reshape(ncodes, ch.nobs)
+        obs_ri = np.stack([obs.real, obs.imag]).astype(np.float32)
+
+        power, phase = _lag_bank_correlate(
+            torch.from_numpy(obs_ri).to(self.device), self._lag_matrix(i)
+        )
+        power = power.cpu().numpy() / ch.nobs**2 * 4  # per-sample amplitude scale
+        phase = phase.cpu().numpy()
+
+        pk_idx = np.argmax(power, axis=1)
+        interior = (pk_idx >= 2) & (pk_idx < 2 * nlag - 1)
+        # peak-quality gate: the winning lag must stand well above the
+        # lag-bank floor (the reference's per-code power gate is commented
+        # out, rxcomplex.cpp:647; without one a pure-noise second keeps
+        # "lock")
+        floor = np.median(power, axis=1)
+        quality = power[np.arange(ncodes), pk_idx] > 10.0 * np.maximum(
+            floor, 1e-30
+        )
+        w = (interior & quality).astype(np.float64)
+
+        hrc = hrc_correction(torch.from_numpy(power),
+                             torch.from_numpy(pk_idx)).numpy()
+        gd_ns = (st.pt + pk_idx - nlag + hrc) * 1e9 / self.fs
+        ps = power[np.arange(ncodes), pk_idx] / max(ch.psbb, 1e-30)
+        # the lag bank returns the reference's atan2(-im, re) — the
+        # CONJUGATE of the residual carrier phase under the exp(-j2pi fc t)
+        # downconversion; negate so the fitted slope is f_true - fc
+        res_phi = -phase[np.arange(ncodes), pk_idx]
+
+        # median/IQR 3-sigma gate (:699-700)
+        med, sigma = median_iqr_sigma(torch.from_numpy(gd_ns), torch.from_numpy(w))
+        med, sigma = float(med), float(sigma)
+        ok = np.abs(gd_ns - med) < max(3.0 * sigma, 1e-6)
+        w = w * ok
+
+        cnt = int(w.sum())
+        if cnt * 2 <= bps:
+            # lock lost -> reacquire next second (:775-798)
+            st.is_trk = False
+            st.last_phi = 0.0
+            self.log.append(log_line("lock lost   ", cfg, cnt, bps))
+            return None
+
+        # BPSK half-cycle unwrap (:702-720), seeded in float64
+        res_phi = _phase_unwrap_scan(
+            torch.from_numpy(res_phi.astype(np.float64)),
+            torch.from_numpy(w),
+            torch.tensor(st.last_phi, dtype=torch.float64),
+        ).numpy()
+        st.last_phi = float(res_phi[w > 0][-1]) if (w > 0).any() else st.last_phi
+
+        # weighted fits (:728-744)
+        ttag_phi = (np.arange(ncodes) * cfg.code_len / cfg.chip_rate) + st.pt / self.fs
+        c0p, c1p, _ = weighted_linear_fit(
+            torch.from_numpy(ttag_phi), torch.from_numpy(res_phi), torch.from_numpy(w)
+        )
+        c0p, c1p = float(c0p), float(c1p)
+        st.fc += np.round(c1p)
+        st.df = c1p - np.round(c1p)
+        st.phi = float(np.mod(c0p + 1000.0, 1.0))
+
+        ttag_gd = np.arange(ncodes) * cfg.code_len / cfg.chip_rate
+        c0g, c1g, chi2 = weighted_linear_fit(
+            torch.from_numpy(ttag_gd), torch.from_numpy(gd_ns), torch.from_numpy(w)
+        )
+        c0g, c1g = float(c0g), float(c1g)
+        st.sdgd = float(np.sqrt(max(float(chi2), 0.0) / max(cnt, 1)))
+        st.gd = c0g + 0.5 * c1g
+        st.dg = c1g
+        st.pt_prev = st.pt
+        # the reference writes pt unguarded (rxcomplex.cpp:744); wrap by
+        # one code period so a delay near 0 with negative drift cannot
+        # make the next second's slice start at -1
+        st.pt = int(np.round((c0g + c1g) * self.fs / 1e9)) % ch.nobs
+        st.pk = float(np.mean(ps[w > 0])) if (w > 0).any() else 0.0
+
+        first = st.is_first
+        st.is_first = False
+        if first:
+            self.log.append(log_line("code lock   ", cfg, cnt, bps))
+            return None
+        px = float(np.mean(np.abs(smp[: int(self.fs)]) ** 2))
+        return SecondReport(
+            fc_hz=st.fc + st.df,
+            phi_cycles=st.phi,
+            cnt=cnt,
+            gd_ns=st.gd,
+            dg_ns_per_s=st.dg,
+            sdgd_ns=st.sdgd,
+            pk_dbm=_v2_to_dbm(st.pk),
+            pnoise_dbm=_v2_to_dbm(max(px - st.pk, 1e-30)),
+            locked=True,
+        )

@@ -535,15 +535,18 @@ def phase_tables(
 @dataclass
 class PendingSecond:
     """One second of samples, packed for transfer and (possibly already)
-    in flight to the device: the pinned host copy is uploaded with
-    ``non_blocking=True`` on the current stream, so a prefetched second's
-    upload is queued ahead of the compute that needs it."""
+    in flight to the device.  On the card the pinned host copy is uploaded
+    ``non_blocking`` on the receiver's copy stream and ``copied`` is
+    recorded after it, so a prefetched second's upload runs beside the
+    previous second's compute; :meth:`BankedReceiver.process_second` makes
+    the compute stream wait on ``copied`` before it reads ``dev``."""
 
     dev: torch.Tensor  # device tensor in the transfer format
     scale: torch.Tensor | None  # device scalar for int8/int4/int2, else None
     px_rows: np.ndarray  # (n_buf,) noise power, computed PRE-quantization
     have: np.ndarray  # (C,) which channels have samples this second
     host: torch.Tensor | None = None  # the pinned source of ``dev``
+    copied: torch.cuda.Event | None = None  # the upload's end (card only)
 
 
 class BankedReceiver:
@@ -645,6 +648,8 @@ class BankedReceiver:
         self.transfer = transfer
         self.log: list[str] = []
         self._acq_attempt = 0  # probe-epoch diversity counter
+        self._copy_stream = (torch.cuda.Stream(device=self.device)
+                             if self.device.type == "cuda" else None)
 
     def _init_bank(self, built: list[Channel]) -> None:
         self.bank = build_bank(built, self.fs)
@@ -781,20 +786,27 @@ class BankedReceiver:
 
     def upload_second(self, iq_by_phys: dict[str, np.ndarray]) -> PendingSecond:
         """Pack a second into pinned host memory and START its upload
-        (``non_blocking`` on the current stream); pass the handle to
-        :meth:`process_second` later."""
+        (``non_blocking`` on the copy stream, an event recorded after it);
+        pass the handle to :meth:`process_second` later.  The handle holds
+        the pinned buffer until that second has been processed."""
         packed, scale, px_rows, have = self._pack_second(iq_by_phys)
         host = torch.from_numpy(packed)
-        if self.device.type == "cuda":
+        copied = None
+        if self._copy_stream is not None:
             host = host.pin_memory()
-        dev = host.to(self.device, non_blocking=True)
+            with torch.cuda.stream(self._copy_stream):
+                dev = host.to(self.device, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self._copy_stream)
+        else:
+            dev = host
         sdev = (
             None if scale is None
             else torch.tensor(float(scale), dtype=torch.float32,
                               device=self.device)
         )
         return PendingSecond(dev=dev, scale=sdev, px_rows=px_rows,
-                             have=have, host=host)
+                             have=have, host=host, copied=copied)
 
     def process_second(
         self,
@@ -811,6 +823,12 @@ class BankedReceiver:
                     "process_second needs iq_by_phys or pending"
                 )
             pending = self.upload_second(iq_by_phys)
+        if pending.copied is not None:
+            # the compute stream reads the upload only once it has landed;
+            # the copy-stream allocation must outlive that reader
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(pending.copied)
+            pending.dev.record_stream(compute)
         C = self.bank.n_channels
         have = pending.have
         cold = [
@@ -832,8 +850,10 @@ class BankedReceiver:
 
     def run_stream(self, seconds, *, prefetch: bool = True):
         """Drive the receiver over an iterable of per-second sample dicts,
-        uploading second k+1 before second k is processed (the real-time
-        bar is ``rxcomplex.cpp:36`` — 120 channels, 1 s of samples per s).
+        uploading second k+1 before second k is processed, so that on the
+        card its copy runs on the copy stream beside second k's compute
+        (the real-time bar is ``rxcomplex.cpp:36`` — 120 channels, 1 s of
+        samples per s).  ``prefetch`` on and off give the same bits.
 
         Yields each second's reports list.  SIC configurations disable
         the prefetch: the cleaned rows must be rebuilt from the replica

@@ -11,6 +11,7 @@ step's contract:
   exactly on the device) or int8 with a per-batch scale, as (B, L, 2) or
   as the file's interleaved dual-channel (n, L, 4), which the step
   deinterleaves into channel-major (2n, L, 2) (``boundary.py:128-148``);
+  complex epochs (B, L) go in as they are (the ``monitor`` verb);
 - ``ranging_step_packed`` flattens every output into one (..., 14)
   float32 row, so a batch costs one device-to-host copy; ``indice``
   rides as float32, exact below 2^24, which :func:`make_ranging_step`
@@ -107,7 +108,8 @@ def ranging_step(
     fine_freq: bool = False,
     scale: torch.Tensor | float | None = None,
 ) -> RangingOutputs:
-    """One batch: IQ (B, L, 2) or (n, L, 4) -> per-epoch estimates.
+    """One batch: IQ (B, L, 2) or (n, L, 4), or complex epochs (B, L) ->
+    per-epoch estimates.
 
     ``use_mask=True``: per-epoch squaring-FFT df inside ``mask`` (the
     godual chain); ``False``: ``df_fixed`` broadcast over the epochs (the
@@ -117,21 +119,25 @@ def ranging_step(
     ``fine_matrix`` the (L, W) complex64 window matrix of the fast path.
     ``fine_freq`` adds the phase-drift refinement of the coarse df.
     """
-    if iq.dtype == torch.int8:
-        if scale is None:
-            raise ValueError(
-                "int8 iq requires the per-batch dequantization scale "
-                "(q = round(x/scale)); pass scale= to the step"
-            )
-        if isinstance(scale, torch.Tensor):
-            scale = scale.to(torch.float32)
-        iq = iq.to(torch.float32) * scale  # a float scale multiplies as float32
-    elif iq.dtype in (torch.int16, torch.float16, torch.bfloat16):
-        # the int16 cast is exact: int16 ingest equals float32 ingest
-        iq = iq.to(torch.float32)
-    if iq.shape[-1] == 4:
-        iq = torch.cat([iq[..., 0:2], iq[..., 2:4]], dim=0)
-    d = torch.complex(iq[..., 0], iq[..., 1])
+    if iq.is_complex():
+        d = iq  # (B, L) complex epochs as they are
+    else:
+        if iq.dtype == torch.int8:
+            if scale is None:
+                raise ValueError(
+                    "int8 iq requires the per-batch dequantization scale "
+                    "(q = round(x/scale)); pass scale= to the step"
+                )
+            if isinstance(scale, torch.Tensor):
+                scale = scale.to(torch.float32)
+            iq = iq.to(torch.float32) * scale  # a float scale multiplies as float32
+        elif iq.dtype in (torch.int16, torch.float16, torch.bfloat16):
+            # the int16 cast is exact: int16 ingest equals float32 ingest
+            iq = iq.to(torch.float32)
+        if iq.shape[-1] == 4:
+            iq = torch.cat([iq[..., 0:2], iq[..., 2:4]], dim=0)
+        d = torch.complex(iq[..., 0], iq[..., 1])
+    real = d.real.dtype
     if use_mask:
         df, _ = squaring_df(d - torch.mean(d, dim=-1, keepdim=True), fs, mask)
     else:
@@ -139,12 +145,12 @@ def ranging_step(
     if fine_freq:
         # pyFFTW-chain refinement (godual_ranging_fftw.py:35-39): mix by
         # the coarse df, fit the residual phase drift
-        t = torch.arange(d.shape[-1], dtype=iq.dtype, device=d.device) / fs
+        t = torch.arange(d.shape[-1], dtype=real, device=d.device) / fs
         ang = -2.0 * math.pi * df[..., None] * t
         y = d * torch.complex(torch.cos(ang), torch.sin(ang))
         df = df + fine_df_phase_drift(y, fs)
     res = correlate_epochs(
-        d, fcode, df.to(iq.dtype), code_interp, fs,
+        d, fcode, df.to(real), code_interp, fs,
         nint=nint, conjugate_data=conjugate_data, fcode_interp=fcode_interp,
         fast=fast, fine_matrix=fine_matrix,
     )

@@ -20,7 +20,9 @@ Two inputs, one kernel:
 
 On a CPU tensor each wrapper computes the plain version (einsum + atan2);
 on a CUDA tensor it launches the kernel or raises — there is no fallback.
-``lag_bank_kernel.launches`` counts kernel launches.
+``lag_bank_kernel.launches`` counts kernel launches of both forms,
+``lag_bank_correlate.launches`` those of the explicit form (the host
+receiver's, ``models/dllpll.Receiver``).
 
 Bound on the card (see the source note in ``csrc/lagbank.cu``): the
 window form runs on the tensor cores as compensated 3xTF32 products
@@ -184,7 +186,11 @@ def lag_bank_correlate(obs_ri: torch.Tensor, wav_lags: torch.Tensor):
         w_layout=(0, NL, 1, 0, K * NL),
         power_scale=0.5,
     )
+    lag_bank_correlate.launches += 1
     return power[0], phase[0]
+
+
+lag_bank_correlate.launches = 0
 
 
 def lag_bank_windows_plain(

@@ -25,17 +25,22 @@ shape and its padding rows dropped.
 :func:`process_directory` is the directory batch runner of
 ``goprocess.sh`` (``pipeline.py:705-771``): every unprocessed capture of
 a directory through one chain, with the idempotent-resume contract;
-:func:`gzip_archives` is its gzip preamble.  The scheduling helpers, the
-acquisition retry loop and ``follow_capture`` are not ported.
+:func:`gzip_archives` is its gzip preamble.  :func:`follow_capture` tails
+a growing capture for the ``monitor`` verb (``pipeline.py:774-824``), and
+:func:`next_sampling_window`, :func:`next_processing_time` and
+:func:`retry_until_valid` are the acquisition schedule and retry loop
+(``pipeline.py:646-702``), host code copied as it is.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 import glob
 import os
 import queue
 import threading
 import time
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import numpy as np
@@ -65,6 +70,10 @@ __all__ = [
     "BatchReport",
     "process_directory",
     "gzip_archives",
+    "follow_capture",
+    "next_sampling_window",
+    "next_processing_time",
+    "retry_until_valid",
 ]
 
 #: Measured p99 |delay error| of the int8 transfer format against the
@@ -407,3 +416,113 @@ def gzip_archives(directory: str) -> list[str]:
     preamble)."""
     return [matio.gzip_file(p)
             for p in sorted(glob.glob(os.path.join(directory, "*.mat")))]
+
+
+def next_sampling_window(now: _dt.datetime) -> tuple[_dt.datetime, float]:
+    """Next acquisition window start + duration (s).
+
+    Reference cron: ``3,45`` minutes past **odd** hours, 5.5-minute
+    captures (``acquisition/crontab:1-2``, ``rx_multi_samples.cpp:38``).
+    """
+    cand = []
+    for day_offset in (0, 1):
+        base = (now + _dt.timedelta(days=day_offset)).replace(
+            minute=0, second=0, microsecond=0
+        )
+        for h in range(24):
+            if h % 2 == 0:  # crontab "1-23/2" = odd hours
+                continue
+            for m in (3, 45):
+                t = base.replace(hour=h) + _dt.timedelta(minutes=m)
+                if t > now:
+                    cand.append(t)
+    return min(cand), 330.0
+
+
+def next_processing_time(now: _dt.datetime) -> _dt.datetime:
+    """Processing fires at :53 of odd hours (``acquisition/crontab:3``)."""
+    cand = []
+    for day_offset in (0, 1):
+        base = (now + _dt.timedelta(days=day_offset)).replace(
+            minute=53, second=0, microsecond=0
+        )
+        for h in range(24):
+            if h % 2 == 0:
+                continue
+            t = base.replace(hour=h)
+            if t > now:
+                cand.append(t)
+    return min(cand)
+
+
+def retry_until_valid(
+    action: Callable[[], str],
+    validate: Callable[[str], bool],
+    attempts: int = 5,
+    delay_s: float = 1.0,
+    on_retry: Callable[[], None] | None = None,
+) -> str | None:
+    """Run ``action`` until ``validate(result)`` — the acquisition retry
+    loop (``gosampling.sh:13-18``: loop until file2.bin > 10 blocks, with
+    a device reset between attempts)."""
+    for i in range(attempts):
+        out = action()
+        if validate(out):
+            return out
+        if i == attempts - 1:
+            break  # no attempt follows: skip the reset + delay
+        if on_retry:
+            on_retry()
+        time.sleep(delay_s)
+    return None
+
+
+def follow_capture(
+    path: str,
+    signal: SignalConfig,
+    *,
+    channels: int = 2,
+    epochs_per_batch: int = 25,
+    poll_s: float = 0.2,
+    timeout_s: float = 10.0,
+    stop_when_idle: bool = False,
+):
+    """Near-real-time monitor of a *growing* capture file.
+
+    The reference streams X310 samples over ZMQ into a live Qt display
+    (``experiments/2403/x310_twstft_gr.py``, ``zmq_rx.py:1-285``); the
+    file-level equivalent tails the capture as the SDR writes it and
+    yields ``(epoch_index, channel, iq_batch)`` tuples (complex64
+    ``(epochs_per_batch, L)``) as soon as a full batch of code periods is
+    available per channel.  Stops after ``timeout_s`` without a new batch
+    (acquisition ended), or as soon as no new full batch is buffered when
+    ``stop_when_idle``.
+    """
+    L = signal.samples_per_code
+    consumed = 0  # complete batches yielded
+    idle = 0.0
+    while True:
+        try:
+            avail = io.n_samples_sc16(path, channels=channels)
+        except OSError:
+            avail = 0
+        ready = int(avail // (epochs_per_batch * L))
+        if ready > consumed:
+            idle = 0.0
+            for b in range(consumed, ready):
+                d, n = io.read_sc16_epochs(
+                    path, b * epochs_per_batch * L, epochs_per_batch, L,
+                    channels=channels,
+                )
+                if n == 0:
+                    break
+                for ch in range(channels):
+                    yield b * epochs_per_batch, ch, d[ch]
+            consumed = ready
+        else:
+            if stop_when_idle:
+                return
+            idle += poll_s
+            if idle >= timeout_s:
+                return
+            time.sleep(poll_s)

@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives two slices of the port at production geometry and fails
+It drives every slice of the port at production geometry and fails
 (non-zero exit, no result line) on any error.  The DLL/PLL slice,
 ``twstft-torch dllpll`` through the banked receiver:
 
@@ -86,6 +86,40 @@ and elementwise torch):
     the ``.1s``/``.1sc`` products and ``res_mean_ns`` within 1 ns of the
     folded truths, then ``campaign`` on its summary.
 
+The live paths (after the bank, and after the GoRanging slice on its
+capture):
+
+16. synthesizes a two-input production-geometry capture of 8 emissions
+    (4 per input, 5 s plus one code, amplitude 100, noise 300, delay
+    fractions within +-0.3 sample, Dopplers within +-3 kHz and at least
+    560 Hz apart on each input, so that no other emission's squaring line
+    falls in a channel's fine-frequency mask) and runs ``dllpll --host
+    --serve PORT --serve-min-clients 1`` in-process with a subscriber
+    thread, the explicit-form launch count set to 0 just before;
+17. checks that all 8 channels report at the last second within 0.5 Hz
+    and a quarter sample of the truths, that the subscriber received
+    exactly the printed rows, and that the explicit form of the lag-bank
+    kernel launched once per tracked channel-second;
+18. holds the card against the port's Receiver on the CPU over the first
+    3 s (cnt identical, fc within 1e-3 Hz, gd within 0.01 ns);
+19. runs the banked ``dllpll`` on the same capture and ``sdr.param``
+    (within 0.5 Hz and a quarter sample of the host receiver);
+20. holds the explicit form against its plain version and float64 on the
+    host path's last-launch inputs, (2, 24, 200 000) x (200 000, 57), and
+    times it, its plain version and ``torch.matmul`` of the same product;
+21. grows a new file from the GoRanging capture in 1-s appends, one per
+    second as a receiver writes (a writer thread), while ``monitor --serve PORT --timeout 3`` tails it on the
+    card, with a subscriber thread;
+22. checks a row for every epoch of both channels, each channel's median
+    delay within 0.01 sample of the truth, the rows equal to direct calls
+    of the verb's bound step on the same epochs, the first batch equal to
+    the port on the CPU (indice identical, delay within 1e-4 sample), and
+    that the subscriber got every row and a spectrum per batch and channel;
+23. prints rows per second and the lag from a batch's last appended byte
+    to its last row;
+24. runs ``goranging --fast --profile DIR`` once and checks that the
+    Chrome trace holds CUDA kernel events.
+
 It prints the card's name and power limit (``nvidia-smi``), one
 ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -96,12 +130,16 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
 import os
+import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -141,6 +179,17 @@ TW_DELAY_TOL = 0.01  # samples, median tracked delay vs folded truth
 TW_DF_TOL = 0.5  # Hz, every block's df
 TW_CPU_DELAY_TOL = 1e-4  # samples, card vs CPU on the resident path
 TW_RES_TOL_NS = 1.0  # go1s res_mean vs the folded truths
+# the host receiver's capture: production geometry, 4 emissions per input
+# (8 channels) over 5 s; Dopplers on a 600-Hz grid, so that on each input
+# they lie at least 560 Hz apart and no other emission's squaring line
+# falls in a channel's +-200 Hz fine-frequency mask (dllpll.py:736-744)
+HOST_PER_INPUT = 4
+HOST_SECONDS = 5
+HOST_DOP_GRID = 600.0
+HOST_CPU_SECONDS = 3  # the card-vs-CPU prefix
+HOST_CPU_FC_HZ = 1e-3
+HOST_CPU_GD_NS = 0.01
+MON_SECONDS = 10  # appended to the tailed file, one second per second
 
 
 def log(msg: str) -> None:
@@ -162,36 +211,41 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def synthesize(dev, seed: int, taps: list[int], path: str) -> dict:
-    """Write the two-input capture; return the injected truths."""
+def synthesize(dev, seed: int, taps: list[int], path: str,
+               n_per_input: int = N_PER_INPUT, n_seconds: int = N_SECONDS,
+               dop_grid: float = 100.0) -> dict:
+    """Write the two-input capture (``n_per_input`` emissions per input,
+    ``n_seconds`` plus one code, Dopplers on a ``dop_grid``-Hz grid within
+    +-3 kHz, distinct per input, plus a fractional offset within +-20 Hz);
+    return the injected truths."""
     from amaranth_twstft_tpu_torch.ops.lfsr import prn_chips_batch
 
     nobs = CODE_LEN * int(FS // CHIP_RATE)
     rng = np.random.default_rng(seed)
     chips = prn_chips_batch(BIT_LEN, np.asarray(taps, np.uint64), CODE_LEN)
     fs = int(FS)
-    n_total = N_SECONDS * fs + nobs
+    n_total = n_seconds * fs + nobs
     truths = {}
     gen = torch.Generator(device=dev).manual_seed(seed)
     k = torch.fft.fftfreq(nobs, device=dev, dtype=torch.float64)
     t = torch.arange(fs, device=dev, dtype=torch.float64)
     frame = np.empty((n_total, 4), np.int16)
     for inp, phys in enumerate("AB"):
-        rows = list(range(inp * N_PER_INPUT, (inp + 1) * N_PER_INPUT))
-        # Dopplers on a 100 Hz grid (distinct per input, so the squaring
-        # lines at 2f stay apart) plus a common fractional offset
-        dops = (rng.choice(np.arange(-3000.0, 3001.0, 100.0), N_PER_INPUT,
+        rows = list(range(inp * n_per_input, (inp + 1) * n_per_input))
+        # Dopplers on a grid (distinct per input, so the squaring lines at
+        # 2f stay apart) plus a fractional offset
+        dops = (rng.choice(np.arange(-3000.0, 3001.0, dop_grid), n_per_input,
                            replace=False)
-                + rng.uniform(-20.0, 20.0, N_PER_INPUT))
+                + rng.uniform(-20.0, 20.0, n_per_input))
         # whole-sample delays plus a fraction within +-MAX_FRAC: at 2
         # samples per chip the HRC discriminator (rxcomplex.cpp:649-659,
         # kept as the JAX package has it) overshoots the fraction more and
         # more as it nears one half: within a quarter sample at 0.3,
         # beyond it at 0.45
         # (tests/test_torch_tracker.py::test_fractional_delay_matches_jax)
-        delays = (rng.integers(0, nobs, N_PER_INPUT)
-                  + rng.uniform(-MAX_FRAC, MAX_FRAC, N_PER_INPUT)) % nobs
-        phases = rng.uniform(0.0, 1.0, N_PER_INPUT)
+        delays = (rng.integers(0, nobs, n_per_input)
+                  + rng.uniform(-MAX_FRAC, MAX_FRAC, n_per_input)) % nobs
+        phases = rng.uniform(0.0, 1.0, n_per_input)
         code = torch.from_numpy(
             np.repeat(chips[rows].astype(np.float64) * 2 - 1, 2, axis=1)
         ).to(dev)
@@ -203,7 +257,7 @@ def synthesize(dev, seed: int, taps: list[int], path: str) -> dict:
             n = min(fs, n_total - s0)
             tt = t[:n] + s0
             idx = torch.remainder(tt.long(), nobs)
-            for j in range(N_PER_INPUT):
+            for j in range(n_per_input):
                 ph = torch.remainder(dops[j] * tt / FS + phases[j], 1.0)
                 sig[s0 : s0 + n] += (AMPLITUDE * wave[j, idx]
                                      * torch.exp(2j * math.pi * ph))
@@ -217,6 +271,19 @@ def synthesize(dev, seed: int, taps: list[int], path: str) -> dict:
         del sig, wave, code, ramp, noise, iq
     frame.tofile(path)
     return truths
+
+
+def write_param(param: str, truths: dict) -> tuple[str, str]:
+    """The ``sdr.param`` of every emission of ``truths`` (acquisition over
+    +-4 kHz from 0 Hz in 100 Hz steps, 7 dB gate) and the ``--taps-map``
+    that gives each PRN its code."""
+    kcps = CHIP_RATE / 1e3
+    chans = sorted(truths, key=lambda k: k[1])
+    with open(param, "w") as f:
+        f.write("# ch sic prn fc kcps flt frange fstep snr\n")
+        for phys, prn in chans:
+            f.write(f"{phys} N {prn} 0 {kcps:g} {kcps:g} 4000 100 7\n")
+    return param, ",".join(f"{prn}={truths[(phys, prn)][2]}" for phys, prn in chans)
 
 
 @contextlib.contextmanager
@@ -259,14 +326,7 @@ def run_dllpll(work: str, truths: dict, cap: str, dev):
     from amaranth_twstft_tpu_torch.models import tracker
     from amaranth_twstft_tpu_torch.utils import io as sc16
 
-    param = os.path.join(work, "sdr.param")
-    kcps = CHIP_RATE / 1e3
-    chans = sorted(truths, key=lambda k: k[1])
-    with open(param, "w") as f:
-        f.write("# ch sic prn fc kcps flt frange fstep snr\n")
-        for phys, prn in chans:
-            f.write(f"{phys} N {prn} 0 {kcps:g} {kcps:g} 4000 100 7\n")
-    taps_map = ",".join(f"{prn}={truths[(phys, prn)][2]}" for phys, prn in chans)
+    param, taps_map = write_param(os.path.join(work, "sdr.param"), truths)
     out_dir = os.path.join(work, "out")
     times = {k: [] for k in ("read", "pack", "upload", "bank", "track_step",
                              "acquire_step")}
@@ -315,13 +375,22 @@ def run_dllpll(work: str, truths: dict, cap: str, dev):
         tracker.lag_bank_windows = orig_lag_bank
     if rc != 0:
         raise RuntimeError(f"dllpll exited {rc}")
-    reports: dict = {}
-    for line in stdout.getvalue().splitlines():
-        f = line.split()
-        reports[(int(f[0]), f[1], int(f[2][3:]))] = (float(f[3]), int(f[5]), float(f[6]))
+    reports = parse_rows(stdout.getvalue())
     with open(os.path.join(out_dir, "rxcomplex.log")) as f:
         rxlog = f.read()
     return reports, times, e2e_walls, rxlog, last_lag_bank
+
+
+def parse_rows(text: str) -> dict:
+    """The dllpll verb's printed rows -> {(second, physical, prn): (fc_hz,
+    cnt, gd_ns)}; comment lines (``# serving on ...``) are skipped."""
+    reports: dict = {}
+    for line in text.splitlines():
+        if line.startswith("#"):
+            continue
+        f = line.split()
+        reports[(int(f[0]), f[1], int(f[2][3:]))] = (float(f[3]), int(f[5]), float(f[6]))
+    return reports
 
 
 def compare_lag_banks(what: str, kernel_out, plain_out):
@@ -386,14 +455,15 @@ def check_kernel(lb_inputs: dict):
     return errs, kern64, plain64, w_mat
 
 
-def check_truths(reports: dict, truths: dict) -> tuple[int, int, float, float]:
+def check_truths(reports: dict, truths: dict,
+                 second: int = CHECK_SECOND) -> tuple[int, int, float, float]:
     nobs = CODE_LEN * int(FS // CHIP_RATE)
     ns_per_sample = 1e9 / FS
     period_ns = nobs * ns_per_sample
     locked = ok = 0
     worst_df = worst_gd = 0.0
     for (phys, prn), (dop, delay, _) in truths.items():
-        rep = reports.get((CHECK_SECOND, phys, prn))
+        rep = reports.get((second, phys, prn))
         if rep is None:
             continue
         locked += 1
@@ -527,8 +597,10 @@ def profile_device(fn, reps: int = 5):
     return total_us / 1e3 / reps, len(dev_events) / reps, table
 
 
-def goranging_phase(work: str, dev, seed: int) -> dict:
-    """Steps 7-10; returns the numbers of the ``{"goranging": ...}`` line."""
+def goranging_phase(work: str, dev, seed: int) -> tuple[tuple, dict]:
+    """Steps 7-10; returns the capture, code and truths (for the monitor
+    and profile phases, which delete them) and the numbers of the
+    ``{"goranging": ...}`` line."""
     from amaranth_twstft_tpu_torch import pipeline
     from amaranth_twstft_tpu_torch.config import ProcessingConfig, SignalConfig
     from amaranth_twstft_tpu_torch.models import goranging
@@ -703,9 +775,7 @@ def goranging_phase(work: str, dev, seed: int) -> dict:
         parts[name] = {"ms": ms, "device_ms": dev_ms, "device_ops": ops}
         log(f"  {name}: {ms:.4f} ms per call (CUDA events), device {dev_ms} ms in "
             f"{ops} device ops (profiler)")
-    for f in (cap, code):
-        os.remove(f)
-    return {
+    return (cap, code, truth), {
         "seconds": GR_SECONDS, "batch_epochs": GR_BATCH, "L": L,
         "iq_msps": msps, "wall_s": wall, "cold_wall_s": runs[0][1],
         "timing": out["timing"], "delay_err_samples": [e[0] for e in errs],
@@ -1027,6 +1097,464 @@ def twoway_phase(work: str, dev, seed: int, lt_taps: int) -> dict:
     }
 
 
+def free_port() -> int:
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+class Subscriber(threading.Thread):
+    """A monitor-stream subscriber in a thread: retries refused connects
+    for 60 s (the producer may not be up yet), keeps every message with
+    its arrival time, and keeps any other error for :meth:`result`."""
+
+    def __init__(self, port: int, timeout_s: float = 120.0):
+        super().__init__(daemon=True)
+        self.port, self.timeout_s = port, timeout_s
+        self.msgs: list[tuple[float, dict]] = []
+        self.connected = threading.Event()
+        self.error: BaseException | None = None
+
+    def run(self):
+        from amaranth_twstft_tpu_torch.utils.stream import connect_monitor
+
+        deadline = time.monotonic() + 60.0
+        try:
+            while True:
+                try:
+                    for msg in connect_monitor("127.0.0.1", self.port,
+                                               timeout_s=self.timeout_s):
+                        self.msgs.append((time.monotonic(), msg))
+                        self.connected.set()
+                    return
+                except ConnectionRefusedError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.05)
+        except BaseException as e:  # noqa: BLE001 — raised by result()
+            self.error = e
+
+    def result(self) -> list[tuple[float, dict]]:
+        self.join(timeout=self.timeout_s)
+        if self.is_alive():
+            raise RuntimeError("the subscriber never saw the end of the stream")
+        if self.error is not None:
+            raise RuntimeError("the subscriber failed") from self.error
+        if not self.msgs or self.msgs[-1][1] != {"type": "end"}:
+            raise RuntimeError("the stream ended without its end message")
+        return self.msgs
+
+
+def sc16_seconds(cap: str, n: int, nobs: int):
+    """The dllpll verb's per-second sample dicts (complex64, fs + one code
+    per second, the tail shortened), for the first ``n`` seconds."""
+    from amaranth_twstft_tpu_torch.utils import io as sc16
+
+    fs = int(FS)
+    total = sc16.n_samples_sc16(cap, channels=2)
+    for s in range(n):
+        d, _ = sc16.read_sc16_epochs(cap, s * fs, 1, min(fs + nobs, total - s * fs),
+                                     channels=2)
+        yield {"A": d[0, 0], "B": d[1, 0]}
+
+
+def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
+    """Steps 16-20: ``dllpll --host --serve`` on a production-geometry
+    capture of 8 emissions; returns the numbers of the ``{"host": ...}``
+    line and the explicit-form entries of the kernels line."""
+    from amaranth_twstft_tpu_torch import cli
+    from amaranth_twstft_tpu_torch.models import dllpll
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    nobs = CODE_LEN * int(FS // CHIP_RATE)
+    cap = os.path.join(work, "host.sc16")
+    t0 = time.perf_counter()
+    truths = synthesize(dev, seed + 1, taps[: 2 * HOST_PER_INPUT], cap,
+                        n_per_input=HOST_PER_INPUT, n_seconds=HOST_SECONDS,
+                        dop_grid=HOST_DOP_GRID)
+    log(f"host capture: {len(truths)} emissions, {HOST_SECONDS} s + one code, "
+        f"{os.path.getsize(cap) / 1e6:.0f} MB in {time.perf_counter() - t0:.1f} s; "
+        f"Dopplers {sorted(round(v[0], 1) for v in truths.values())} Hz")
+    param, taps_map = write_param(os.path.join(work, "host.param"), truths)
+    common = [cap, "--param", param, "--fs", repr(FS), "--bitlen", str(BIT_LEN),
+              "--code-len", str(CODE_LEN), "--taps-map", taps_map]
+
+    # -- 16. the main path: dllpll --host --serve, an in-process subscriber
+    walls: list[float] = []
+    caf_ms: list[float] = []
+    last: dict = {}
+    orig_caf, orig_lb = dllpll.caf_search, dllpll.lag_bank_correlate
+
+    def timed_caf(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig_caf(*a, **kw)
+        e1.record()
+        e1.synchronize()
+        caf_ms.append(e0.elapsed_time(e1))
+        return out
+
+    def keep_inputs(obs_ri, wav_lags):
+        last.update(obs=obs_ri, w=wav_lags)
+        return orig_lb(obs_ri, wav_lags)
+
+    port = free_port()
+    sub = Subscriber(port)
+    sub.start()
+    out_dir = os.path.join(work, "host_out")
+    shutil.rmtree(out_dir, ignore_errors=True)  # the verb appends
+    stdout = io.StringIO()
+    lagbank.lag_bank_correlate.launches = 0
+    lagbank.lag_bank_kernel.launches = 0
+    dllpll.caf_search, dllpll.lag_bank_correlate = timed_caf, keep_inputs
+    try:
+        t0 = time.perf_counter()
+        with timing_hooks([(dllpll.Receiver, "process_second", walls, True)]), \
+                contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["dllpll", *common, "--host", "--serve", str(port),
+                           "--serve-min-clients", "1", "--out-dir", out_dir,
+                           "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dllpll.caf_search, dllpll.lag_bank_correlate = orig_caf, orig_lb
+    launches = lagbank.lag_bank_correlate.launches
+    if rc != 0:
+        raise RuntimeError(f"dllpll --host exited {rc}")
+    msgs = sub.result()
+    rows = [ln for ln in stdout.getvalue().splitlines() if not ln.startswith("#")]
+    reps = parse_rows(stdout.getvalue())
+    with open(os.path.join(out_dir, "rxcomplex.log")) as f:
+        rxlog = f.read()
+    log(f"dllpll --host: {HOST_SECONDS} s of {len(truths)} channels in {wall:.3f} s "
+        f"wall; Receiver.process_second wall per second {[round(w, 4) for w in walls]} s; "
+        f"caf_search per acquisition {[round(m, 3) for m in caf_ms]} ms (CUDA events)")
+
+    # -- 17. truths, the subscriber, the launches -------------------------
+    last_second = HOST_SECONDS - 1
+    locked, ok, worst_df, worst_gd = check_truths(reps, truths, last_second)
+    log(f"second {last_second}: {locked} of {len(truths)} channels report, {ok} within "
+        f"0.5 Hz and 0.25 sample (worst |df| {worst_df:.4f} Hz, worst |gd| "
+        f"{worst_gd:.4f} sample)")
+    if locked != len(truths) or ok != locked:
+        raise RuntimeError(f"host truth check failed: {locked} report, {ok} ok")
+    track = io.StringIO()
+    with contextlib.redirect_stdout(track):
+        for _, m in msgs:
+            if m["type"] == "track":
+                cli._print_track_msg(m)
+    if msgs[0][1].get("mode") != "dllpll" or track.getvalue().splitlines() != rows:
+        raise RuntimeError("the subscriber's track messages differ from the printed rows")
+    log(f"subscriber: hello, {len(rows)} track messages equal to the printed rows, end")
+    tracked = len(rows) + rxlog.count("code lock") + rxlog.count("lock lost")
+    if launches != tracked or launches != len(truths) * (HOST_SECONDS - 1):
+        raise RuntimeError(f"explicit-form launches {launches}, tracked "
+                           f"channel-seconds {tracked}")
+    log(f"explicit-form lag-bank launches on the --host path: {launches} "
+        f"(= tracked channel-seconds; {lagbank.lag_bank_kernel.launches} kernel "
+        f"launches of either form)")
+
+    # -- 18. the card against the port on the CPU, first seconds ----------
+    with open(param) as f:
+        chans = [dataclasses.replace(c, bit_len=BIT_LEN, code_len=CODE_LEN,
+                                     taps=truths[(c.physical, c.prn_id)][2])
+                 for c in dllpll.parse_sdr_param(f.read())]
+    t0 = time.perf_counter()
+    rx_cpu = dllpll.Receiver(chans, fs=FS, device="cpu")
+    cpu_reps = [rx_cpu.process_second(sec)
+                for sec in sc16_seconds(cap, HOST_CPU_SECONDS, nobs)]
+    t_cpu = time.perf_counter() - t0
+    worst_fc = worst_gd_ns = 0.0
+    n_cmp = 0
+    for s, reports in enumerate(cpu_reps):
+        for ch, r in zip(rx_cpu.channels, reports):
+            card = reps.get((s, ch.cfg.physical, ch.cfg.prn_id))
+            if (r is None) != (card is None):
+                raise RuntimeError(f"card vs CPU: second {s} {ch.cfg.prn_id} reports differ")
+            if r is None:
+                continue
+            n_cmp += 1
+            worst_fc = max(worst_fc, abs(card[0] - r.fc_hz))
+            worst_gd_ns = max(worst_gd_ns, abs(card[2] - r.gd_ns))
+            if card[1] != r.cnt:
+                raise RuntimeError(f"card vs CPU: cnt {card[1]} / {r.cnt}")
+    if n_cmp == 0 or worst_fc > HOST_CPU_FC_HZ or worst_gd_ns > HOST_CPU_GD_NS:
+        raise RuntimeError(f"card vs CPU: {n_cmp} rows, fc {worst_fc}, gd {worst_gd_ns}")
+    log(f"card vs the port on the CPU, first {HOST_CPU_SECONDS} s ({t_cpu:.1f} s on the "
+        f"CPU): {n_cmp} rows, cnt identical, max |fc| diff {worst_fc:.2e} Hz, max |gd| "
+        f"diff {worst_gd_ns:.2e} ns")
+
+    # -- 19. the banked receiver on the same capture -----------------------
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["dllpll", *common, "--device", str(dev)])
+    bank = parse_rows(stdout.getvalue())
+    worst_bank_df = worst_bank_gd = 0.0
+    for (phys, prn) in truths:
+        h, b = reps[(last_second, phys, prn)], bank.get((last_second, phys, prn))
+        if rc != 0 or b is None:
+            raise RuntimeError(f"banked dllpll: rc {rc}, no row for {prn}")
+        worst_bank_df = max(worst_bank_df, abs(h[0] - b[0]))
+        worst_bank_gd = max(worst_bank_gd, abs(h[2] - b[2]) * FS / 1e9)
+    if worst_bank_df > 0.5 or worst_bank_gd > 0.25:
+        raise RuntimeError(f"host vs bank: df {worst_bank_df}, gd {worst_bank_gd}")
+    log(f"host vs banked dllpll at second {last_second}: max |fc| diff "
+        f"{worst_bank_df:.2e} Hz, max |gd| diff {worst_bank_gd:.2e} sample")
+
+    # -- 20. the explicit form on the path's last-launch inputs ------------
+    obs, w = last["obs"], last["w"]
+    _, C, K = obs.shape
+    nl = w.shape[1]
+    abs_err, rel_err, ph_err = compare_lag_banks(
+        f"explicit form on the --host path's last launch, (2, C, K) x (K, NL) = "
+        f"(2, {C}, {K}) x ({K}, {nl})",
+        lagbank.lag_bank_correlate(obs, w), lagbank.lag_bank_plain(obs, w))
+    ref64 = lagbank.lag_bank_plain(obs.double(), w.double())
+    kern64 = lagbank.lag_bank_errors(lagbank.lag_bank_correlate(obs, w), ref64)
+    plain64 = lagbank.lag_bank_errors(lagbank.lag_bank_plain(obs, w), ref64)
+    del ref64
+    ms = cuda_ms(lambda: lagbank.lag_bank_correlate(obs, w), 20)
+    plain_ms = cuda_ms(lambda: lagbank.lag_bank_plain(obs, w), 10)
+    obs2 = obs.reshape(2 * C, K)
+    library_ms = cuda_ms(lambda: torch.matmul(obs2, w), 10)
+    ms2 = cuda_ms(lambda: lagbank.lag_bank_correlate(obs, w), 20)
+    flops = 2.0 * 2 * C * nl * K
+    nbytes = 4.0 * (obs.numel() + w.numel() + 2 * C * nl)  # + power, phase
+    bound_bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    bound_fp32_ms = 1e3 * flops / PEAK_FP32_FLOPS
+    kernel_ms = min(ms, ms2)
+    log(f"explicit form per launch: kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, torch.matmul {library_ms:.4f} ms (CUDA events); bounds: bytes "
+        f"{bound_bytes_ms:.4f} ms ({nbytes:.3e} B), fp32 FMA {bound_fp32_ms:.4f} ms "
+        f"({flops:.3e} FLOP); against float64: kernel power err / row max "
+        f"{kern64[0]:.3e}, phase {kern64[1]:.3e} cycles; fp32 plain {plain64[0]:.3e}, "
+        f"{plain64[1]:.3e} cycles")
+    # the dense CAF at the acquisition's shape: one production epoch,
+    # 81 hypotheses of +-4 kHz in 100 Hz steps (the Queue 2 row)
+    from amaranth_twstft_tpu_torch.ops import caf
+
+    ch0 = rx_cpu.channels[0]
+    epoch = next(sc16_seconds(cap, 1, nobs))["A"][12 * nobs : 13 * nobs]
+    d = torch.from_numpy(np.ascontiguousarray(epoch[None])).to(dev)
+    fcode = torch.from_numpy(ch0.fcode).to(dev, d.dtype)
+    code3 = torch.from_numpy(ch0.code_interp).to(dev)
+    shifts, _ = caf.doppler_bins(FS, nobs, -4000.0, 4000.0, 100.0)
+    caf_parts = {}
+    for name, fn in (
+        ("caf_peaks", lambda: caf.caf_peaks(d, fcode, shifts)),
+        ("caf_search", lambda: caf.caf_search(d, fcode, code3, FS, -4000.0, 4000.0,
+                                              100.0)),
+    ):
+        ms_f = cuda_ms(fn, 10)
+        dev_ms, ops, _ = profile_device(fn)
+        caf_parts[name] = {"ms": ms_f, "device_ms": dev_ms, "device_ops": ops}
+        log(f"  {name} (1 x {nobs} complex64, {len(shifts)} hypotheses): {ms_f:.4f} ms "
+            f"per call (CUDA events), device {dev_ms} ms in {ops} device ops (profiler)")
+    os.remove(cap)
+    del obs, obs2, w, last, d, fcode, code3
+    return {
+        "host": {
+            "seconds": HOST_SECONDS, "channels": len(truths), "wall_s": wall,
+            "process_second_wall_s": walls, "caf_search_ms": caf_ms,
+            "worst_df_hz": worst_df, "worst_gd_samples": worst_gd,
+            "cpu_max_fc_diff_hz": worst_fc, "cpu_max_gd_diff_ns": worst_gd_ns,
+            "bank_max_fc_diff_hz": worst_bank_df,
+            "bank_max_gd_diff_samples": worst_bank_gd, "track_messages": len(rows),
+            "caf": caf_parts,
+        },
+        "kernel": {
+            "launches_explicit": launches,
+            "ms_explicit": kernel_ms,
+            "plain_ms_explicit": plain_ms,
+            "library_ms_explicit": library_ms,
+            "bound_explicit_ms": max(bound_bytes_ms, bound_fp32_ms),
+            "bound_explicit_by": "bytes" if bound_bytes_ms >= bound_fp32_ms else "operations",
+            "explicit_max_abs_err": abs_err,
+            "explicit_err_over_row_max": rel_err,
+            "explicit_phase_err_cycles": ph_err,
+            "explicit_f64_err": kern64[0],
+            "explicit_plain_f64_err": plain64[0],
+        },
+    }
+
+
+def monitor_phase(work: str, cap: str, code: str, truth: dict, dev) -> dict:
+    """Steps 21-23: ``monitor --serve`` tails a file that a writer thread
+    grows from the GoRanging capture in 1-s appends; returns the numbers
+    of the ``{"monitor": ...}`` line."""
+    from amaranth_twstft_tpu_torch import cli
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, SignalConfig
+    from amaranth_twstft_tpu_torch.models.godual import build_replica
+    from amaranth_twstft_tpu_torch.ops import boundary, doppler
+    from amaranth_twstft_tpu_torch.utils import io as sc16
+
+    cfg = SignalConfig(fs=FS, chip_rate=CHIP_RATE, code_len=CODE_LEN, bit_len=BIT_LEN)
+    L, fs = cfg.samples_per_code, int(cfg.fs)
+    epochs = round(cfg.codes_per_second)  # the verb's batch: one second
+    grow = os.path.join(work, "grow.sc16")
+    open(grow, "wb").close()
+    port = free_port()
+    sub = Subscriber(port)
+    appended: list[float] = []
+    writer_error: list[BaseException] = []
+
+    def writer():
+        try:
+            if not sub.connected.wait(60.0):
+                raise RuntimeError("the monitor never started serving")
+            with open(cap, "rb") as src, open(grow, "ab") as dst:
+                t_start = time.monotonic()
+                for k in range(MON_SECONDS):
+                    # one second of capture per second, as a receiver writes
+                    time.sleep(max(0.0, t_start + k - time.monotonic()))
+                    dst.write(src.read(fs * 8))
+                    dst.flush()
+                    appended.append(time.monotonic())
+        except BaseException as e:  # noqa: BLE001 — raised below
+            writer_error.append(e)
+
+    steps: list = []
+    orig_make = boundary.make_ranging_step
+
+    def keep_step(*a, **kw):
+        steps.append(orig_make(*a, **kw))
+        return steps[-1]
+
+    wt = threading.Thread(target=writer, daemon=True)
+    sub.start()
+    wt.start()
+    stdout = io.StringIO()
+    boundary.make_ranging_step = keep_step
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["monitor", grow, code, "--serve", str(port),
+                           "--serve-min-clients", "1", "--timeout", "3",
+                           "--device", str(dev), *signal_args(cfg)])
+        wall = time.perf_counter() - t0
+    finally:
+        boundary.make_ranging_step = orig_make
+    wt.join(timeout=120.0)
+    if wt.is_alive() or writer_error:
+        raise RuntimeError(f"the writer failed: {writer_error}")
+    msgs = sub.result()
+    if rc != 0 or len(steps) != 1:
+        raise RuntimeError(f"monitor exited {rc} with {len(steps)} bound steps")
+    printed = [ln for ln in stdout.getvalue().splitlines() if not ln.startswith("#")]
+    rows = [(t, m) for t, m in msgs if m["type"] == "row"]
+    specs = [m for _, m in msgs if m["type"] == "spectrum"]
+
+    # -- 22. checks ------------------------------------------------------
+    want = {(e, c) for e in range(MON_SECONDS * epochs) for c in range(2)}
+    got = [(int(r.split()[0]), int(r.split()[1])) for r in printed]
+    if set(got) != want or len(got) != len(want):
+        raise RuntimeError(f"monitor printed {len(got)} rows, want "
+                           f"{2 * MON_SECONDS * epochs}")
+    sent = [f"{m['epoch']:6d} {m['ch']} {m['delay_samp']:12.4f} {m['df_hz']:9.2f} "
+            f"{m['snr_db']:7.2f} {m['cn0_dbhz']:6.2f}" for _, m in rows]
+    if sent != printed:
+        raise RuntimeError("the subscriber's rows differ from the printed rows")
+    if len({(m["epoch"], m["ch"]) for m in specs}) < MON_SECONDS * 2:
+        raise RuntimeError(f"{len(specs)} spectra for {MON_SECONDS} batches x 2 channels")
+    med_err = []
+    for c in range(2):
+        dl = np.array([float(r.split()[2]) for r in printed if int(r.split()[1]) == c])
+        med_err.append(float(np.median(dl) - truth["delay"][c]))
+    if max(abs(e) for e in med_err) > GR_DELAY_TOL:
+        raise RuntimeError(f"monitor median delay errors {med_err}")
+    # the rows against direct calls of the verb's bound step on the same epochs
+    step = steps[0]
+    direct = []
+    first = {}
+    for b in range(MON_SECONDS):
+        d, n = sc16.read_sc16_epochs(grow, b * epochs * L, epochs, L)
+        for c in range(2):
+            out = boundary.unpack_outputs(step(torch.from_numpy(d[c]).to(dev)).cpu().numpy())
+            dl, snr = out.delay_samples(), out.snr_db()
+            cn0 = _cn0(out)
+            direct += [f"{b * epochs + i:6d} {c} {dl[i]:12.4f} {out.df[i]:9.2f} "
+                       f"{snr[i]:7.2f} {cn0:6.2f}" for i in range(n)]
+            if b == 0:
+                first[c] = (d[c], out)
+    if direct != printed:
+        raise RuntimeError("the monitor's rows differ from direct calls of its step")
+    # the first batch against the port on the CPU
+    rep = build_replica(code, cfg, ProcessingConfig())
+    mask = doppler.window_mask(L, cfg.fs, -20e3, 20e3)
+    cpu_step = boundary.make_ranging_step(rep.fcode, rep.code_interp, mask, cfg.fs,
+                                          packed=True, device="cpu")
+    worst_cpu = 0.0
+    for c, (d, card) in first.items():
+        cpu = boundary.unpack_outputs(cpu_step(torch.from_numpy(d)).numpy())
+        if not np.array_equal(cpu.indice, card.indice):
+            raise RuntimeError(f"monitor card vs CPU: indice differs (channel {c})")
+        worst_cpu = max(worst_cpu, float(np.abs(cpu.delay_samples()
+                                                - card.delay_samples()).max()))
+    if worst_cpu > 1e-4:
+        raise RuntimeError(f"monitor card vs CPU: delay {worst_cpu}")
+
+    # -- 23. rate and lag -------------------------------------------------
+    last_row = {}
+    for t, m in rows:
+        last_row[m["epoch"] // epochs] = t
+    lags = [last_row[b] - appended[b] for b in range(MON_SECONDS)]
+    span = rows[-1][0] - appended[0]
+    log(f"monitor --serve: {len(printed)} rows of {MON_SECONDS} batches x 2 channels, "
+        f"{len(specs)} spectra; verb wall {wall:.3f} s (with the 3 s idle timeout); "
+        f"{len(printed) / span:.1f} rows per second from the first append to the last "
+        f"row; lag from a batch's last appended byte to its last row "
+        f"{[round(x, 3) for x in lags]} s (median {float(np.median(lags)):.3f} s)")
+    log(f"  median delay err {[round(e, 5) for e in med_err]} sample; rows equal to "
+        f"direct calls of the bound step; first batch vs the CPU: indice identical, "
+        f"max delay diff {worst_cpu:.2e} sample")
+    os.remove(grow)
+    return {"rows": len(printed), "spectra": len(specs), "wall_s": wall,
+            "rows_per_s": len(printed) / span, "lag_s": lags,
+            "delay_err_samples": med_err, "vs_cpu_max_delay_diff": worst_cpu}
+
+
+def signal_args(cfg) -> list[str]:
+    return ["--fs", repr(cfg.fs), "--chip-rate", repr(cfg.chip_rate),
+            "--code-len", str(cfg.code_len), "--bitlen", str(cfg.bit_len),
+            "--taps", str(cfg.taps)]
+
+
+def _cn0(out) -> float:
+    from amaranth_twstft_tpu_torch.models.twoway import cn0_dbhz
+
+    return cn0_dbhz(out.snr_r, out.snr_i, FS)
+
+
+def profile_phase(work: str, cap: str, code: str, dev) -> dict:
+    """Step 24: ``goranging --fast --profile LOGDIR``; the Chrome trace
+    must hold CUDA kernel events."""
+    from amaranth_twstft_tpu_torch import cli
+
+    logdir = os.path.join(work, "profile")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["goranging", cap, code, "--fast", "--device", str(dev),
+                       "--batch-epochs", str(GR_BATCH), "--profile", logdir])
+    wall = time.perf_counter() - t0
+    traces = os.listdir(logdir) if os.path.isdir(logdir) else []
+    if rc != 0 or len(traces) != 1:
+        raise RuntimeError(f"goranging --profile exited {rc} with traces {traces}")
+    path = os.path.join(logdir, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise RuntimeError("the profile's trace holds no CUDA kernel events")
+    log(f"goranging --profile: wall {wall:.3f} s, trace {os.path.getsize(path) / 1e6:.1f} "
+        f"MB, {len(events)} events, {len(kernels)} CUDA kernel events")
+    os.remove(path)
+    return {"wall_s": wall, "events": len(events), "kernel_events": len(kernels)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -1146,10 +1674,23 @@ def main() -> int:
     del obs, obs2, w_mat, wav_ext, lb_inputs
     os.remove(cap)
 
+    # -- 16-20. the host-sequential receiver (dllpll --host --serve) -------
+    t0 = time.perf_counter()
+    host = host_phase(work, dev, args.seed, taps)
+    log(f"host phase: {time.perf_counter() - t0:.1f} s")
+
     # -- 7-10. the GoRanging slice -----------------------------------------
     t0 = time.perf_counter()
-    gr = goranging_phase(work, dev, args.seed)
+    (gr_cap, gr_code, gr_truth), gr = goranging_phase(work, dev, args.seed)
     log(f"goranging phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- 21-24. monitor --serve on a growing copy, goranging --profile ------
+    t0 = time.perf_counter()
+    mon = monitor_phase(work, gr_cap, gr_code, gr_truth, dev)
+    prof = profile_phase(work, gr_cap, gr_code, dev)
+    for f in (gr_cap, gr_code):
+        os.remove(f)
+    log(f"monitor and profile phases: {time.perf_counter() - t0:.1f} s")
 
     # -- 11-15. the claudio chain and the two-way products ------------------
     t0 = time.perf_counter()
@@ -1164,6 +1705,8 @@ def main() -> int:
     log(smi)
     log(json.dumps({"goranging": gr}))
     log(json.dumps({"twoway": tw}))
+    log(json.dumps({"host": host["host"]}))
+    log(json.dumps({"monitor": mon, "profile": prof}))
     log(json.dumps({"kernels": [{
         "name": "lagbank",
         "route": "cuda",
@@ -1185,6 +1728,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        **host["kernel"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

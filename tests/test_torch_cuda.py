@@ -368,3 +368,114 @@ def test_claudio_upload_overlap_leaves_results_unchanged(cuda, tmp_path,
     assert out[0]["moved"] == out[1]["moved"]
     for k in ("indice", "correction", "xval", "snr_r", "snr_i", "df"):
         np.testing.assert_array_equal(out[0][k], out[1][k], err_msg=k)
+
+
+# ------------------------------------------------- the host DLL/PLL receiver
+def _two_prn_seconds(dtype=np.complex64, n=4):
+    cfg = SignalConfig(fs=1e5, chip_rate=5e4, code_len=1000, bit_len=10, taps=9)
+    (stream,) = synthesize_capture(
+        cfg,
+        [ChannelSim(delay_samples=137.2, doppler_hz=120.0, amplitude=900,
+                    noise_sigma=120)],
+        n_seconds=5, seed=17,
+        extra_emissions=[(dataclasses.replace(cfg, taps=27),
+                          ChannelSim(delay_samples=555.0, doppler_hz=-210.0,
+                                     amplitude=900, noise_sigma=0.0))],
+    )
+    chans = [
+        td.ChannelConfig(physical="A", prn_id=100 + i, bit_len=10, taps=t,
+                         fc_init_hz=0.0, chip_rate=5e4, code_len=1000,
+                         filter_hz=5e4, acq_range_hz=500.0, acq_step_hz=50.0,
+                         snr_min_db=20.0, nlag=8)
+        for i, t in enumerate((9, 27))
+    ]
+    fs, L = 100_000, 2000
+    secs = [{"A": stream[s * fs : (s + 1) * fs + 2 * L].astype(dtype)} for s in range(n)]
+    return cfg, chans, secs
+
+
+def test_host_receiver_on_card_matches_cpu(cuda):
+    """The host-sequential receiver on complex64 samples (the CLI's sc16
+    reader), card against CPU: same log lines, lock counts and code
+    heads, fc/gd/phi within the bank's card-vs-CPU bounds; the explicit
+    form of the kernel launched once per tracked channel per second."""
+    cfg, chans, secs = _two_prn_seconds()
+    rx_c = td.Receiver(chans, fs=cfg.fs, device="cpu")
+    rx_g = td.Receiver(chans, fs=cfg.fs, device=cuda)
+    before = tlb.lag_bank_correlate.launches
+    rep_c = [rx_c.process_second(s) for s in secs]
+    rep_g = [rx_g.process_second(s) for s in secs]
+    assert tlb.lag_bank_correlate.launches - before == 2 * 3  # seconds 1-3
+    assert rx_g.log == rx_c.log
+    for sec_c, sec_g in zip(rep_c, rep_g):
+        for a, b in zip(sec_c, sec_g):
+            assert (a is None) == (b is None)
+            if a is None:
+                continue
+            assert a.locked == b.locked and a.cnt == b.cnt
+            assert abs(a.fc_hz - b.fc_hz) < FC_HZ
+            assert abs(a.gd_ns - b.gd_ns) < GD_NS
+            assert abs(a.phi_cycles - b.phi_cycles) < PHI_CYCLES
+    assert [s.pt for s in rx_g.states] == [s.pt for s in rx_c.states]
+    assert all(r is not None and r.locked for r in rep_g[3])
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_caf_search_on_card_matches_cpu(cuda, dtype):
+    """Card against CPU (cuFFT against pocketfft): index and indice
+    identical, power within 1e-4 relative, df within 1e-3 Hz, correction
+    within 1e-4 sample."""
+    from amaranth_twstft_tpu_torch.ops import caf
+
+    cfg, chans, secs = _two_prn_seconds()
+    ch = td.build_channel(chans[0], cfg.fs)
+    d = torch.from_numpy(secs[0]["A"][: 6 * ch.nobs].reshape(6, ch.nobs)).to(dtype)
+    out = {}
+    for dev in ("cpu", cuda):
+        res = caf.caf_search(d.to(dev), torch.from_numpy(ch.fcode).to(dev, dtype),
+                             torch.from_numpy(ch.code_interp).to(dev), cfg.fs,
+                             -500.0, 500.0, 50.0)
+        shifts, _ = caf.doppler_bins(cfg.fs, ch.nobs, -500.0, 500.0, 50.0)
+        pk = caf.caf_peaks(d.to(dev), torch.from_numpy(ch.fcode).to(dev, dtype), shifts,
+                           chunk=8)
+        out[str(dev)] = (res.df_hz.cpu(), res.epoch.indice.cpu(),
+                         res.epoch.correction.cpu(), pk.power.cpu(), pk.index.cpu())
+    (df_c, ind_c, cor_c, pw_c, ix_c), (df_g, ind_g, cor_g, pw_g, ix_g) = (
+        out["cpu"], out["cuda"])
+    assert torch.equal(ix_g, ix_c) and torch.equal(ind_g, ind_c)
+    assert float(((pw_g - pw_c).abs() / pw_c).max()) < 1e-4
+    assert float((df_g - df_c).abs().max()) < 1e-3
+    assert float((cor_g - cor_c).abs().max()) < 1e-4
+    assert float((df_g - 120.0).abs().max()) < 10.0
+
+
+def test_explicit_kernel_float64_at_host_shape(cuda):
+    """The explicit (K, NL) form at the host receiver's production shape,
+    (2, 24, 200 000) x (200 000, 57): within the kernel-vs-plain bounds of
+    its plain version, and within 1e-4 of the row maximum of float64."""
+    gen = torch.Generator().manual_seed(5)
+    obs = torch.randn(2, 24, 200_000, generator=gen).to(cuda)
+    wav = torch.randn(200_057, generator=gen).to(cuda)
+    w_mat = wav.unfold(-1, 200_000, 1).flip(0).T.contiguous()
+    before = tlb.lag_bank_correlate.launches
+    kern = tlb.lag_bank_correlate(obs, w_mat)
+    assert tlb.lag_bank_correlate.launches == before + 1
+    plain = tlb.lag_bank_plain(obs, w_mat)
+    _close(kern, plain)
+    ref64 = tlb.lag_bank_plain(obs.double(), w_mat.double())
+    k64 = tlb.lag_bank_errors(kern, ref64)
+    assert k64[0] < 1e-4 and k64[1] < 1e-4, (k64, tlb.lag_bank_errors(plain, ref64))
+
+
+def test_run_stream_copy_stream_prefetch_identical(cuda):
+    """Second k+1's upload on the copy stream beside second k's compute,
+    or no prefetch: the same bits, for f16 and int8 transfers."""
+    cfg, chans, secs = _two_prn_seconds(np.complex128)
+    for transfer in ("auto", "int8"):
+        out = []
+        for prefetch in (True, False):
+            rx = tt.BankedReceiver(chans, fs=cfg.fs, transfer=transfer, device=cuda)
+            reps = list(rx.run_stream(iter(secs), prefetch=prefetch))
+            out.append((reps, rx.log, [dataclasses.asdict(s) for s in rx.states]))
+        assert out[0] == out[1]
+        assert all(r is not None and r.locked for r in out[0][0][3])

@@ -365,7 +365,8 @@ def test_pipeline_sc16_bit_identical_and_failures(files, monkeypatch):
 
 def test_entry_points_default_to_cuda(files, monkeypatch):
     """process_capture_overlapped, both process_files and the CLI verbs
-    run on cuda unless told otherwise, and raise without a card."""
+    run on cuda unless told otherwise, and raise without a card (under
+    ``--profile`` too); ``--sharded`` is refused before any device work."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = (files["cap"], files["code"], _tsig(files["cfg"]))
     for fn in (tpipe.process_capture_overlapped, tgor.process_file):
@@ -373,11 +374,11 @@ def test_entry_points_default_to_cuda(files, monkeypatch):
             fn(*args)
     with pytest.raises(RuntimeError, match="CUDA"):
         tgod.process_file(*args, TProc())
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tcli.main(["goranging", files["cap"], files["code"], "--fast"])
-    for flag in (["--sharded"], ["--profile", "x"]):
-        with pytest.raises(SystemExit):
-            tcli.main(["goranging", files["cap"], files["code"], *flag])
+    for flags in (["--fast"], ["--profile", str(files["tmp"] / "prof")]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tcli.main(["goranging", files["cap"], files["code"], *flags])
+    with pytest.raises(SystemExit):
+        tcli.main(["goranging", files["cap"], files["code"], "--sharded"])
 
 
 @pytest.mark.parametrize("verb", [["goranging"], ["goranging", "--fast"], ["ranging"]])

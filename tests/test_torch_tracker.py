@@ -341,16 +341,25 @@ def test_cli_dllpll_round_trip_matches_jax(small_cfg, two_prn_stream, tmp_path,
                 assert abs(float(cj[k]) - float(ct[k])) < t, (name, k, rj, rt_)
 
 
-def test_cli_refuses_unported_modes(tmp_path):
+def test_cli_refuses_unported_modes(tmp_path, capsys):
+    """The one mode still refused is goranging --sharded (the multi-GPU
+    pipeline); dllpll --host and --serve now run (tests/
+    test_torch_dllpll_host.py, tests/test_torch_live.py)."""
     from amaranth_twstft_tpu_torch.cli import main as torch_main
 
+    with pytest.raises(SystemExit) as e:
+        torch_main(["goranging", "cap.bin", "code.bin", "--sharded",
+                    "--device", "cpu"])
+    assert e.value.code == 2
+    assert "not ported yet" in capsys.readouterr().err
     param = tmp_path / "sdr.param"
     param.write_text("A N 100 0.0 50 50 500 50 20\n")
-    for flag in (["--host"], ["--serve", "5555"]):
-        with pytest.raises(SystemExit) as e:
-            torch_main(["dllpll", "cap.bin", "--param", str(param),
-                        "--device", "cpu", *flag])
-        assert e.value.code == 2
+    cap = tmp_path / "empty.bin"
+    cap.write_bytes(b"")
+    for flag in (["--host"], ["--serve", "0"]):
+        assert torch_main(["dllpll", str(cap), "--param", str(param), "--fs", "1e5",
+                           "--bitlen", "10", "--code-len", "1000", "--nlag", "8",
+                           "--device", "cpu", *flag]) == 0
 
 
 def test_process_second_without_input_raises(small_cfg):
