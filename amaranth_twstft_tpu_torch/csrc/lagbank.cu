@@ -57,23 +57,42 @@
 //   the launcher refuses other layouts and the Python wrapper pads obs
 //   with zeros to a K that is a multiple of 4.
 //
-// Explicit (K, NL) form (off the main path): IEEE fp32 FFMA, one block per
-// (K-chunk[, tile group]) staging kKT samples of obs and of the lag matrix
-// in shared memory, a kPT x kLT register tile of (re, im) per thread,
-// n-slices summed in a fixed order.
+// Explicit (K, NL) form (the host receiver's `lag_bank_correlate`): the
+// same compensated 3xTF32 `mma.sync` products, with BOTH operands
+// streamed, since the lag matrix is an input like obs.
+//   The product is skinny and long: at the host shape, M = 2P = 48 obs
+//   rows, N = NL = 57 lags, K = 200 000 samples, 13 FLOP per byte.  Its
+//   floor is reading obs (38.4 MB) and the matrix (45.6 MB) once, 0.0251
+//   ms at 3.35 TB/s; 3 x 1.094e9 tf32 FLOP take 0.0066 ms at 495
+//   TFLOP/s (fp32 FFMA, 0.0163 ms at 67 TFLOP/s, would sit too close to
+//   the floor to hide behind the copies).  So the design keeps bytes in
+//   flight:
+//   - split-K over chunks of `kb` samples that the Python wrapper picks
+//     (ops/lagbank.explicit_chunk) so that the grid is two blocks per SM
+//     for the whole launch: 264 chunks of 760 at the host shape;
+//   - a ring of kXS-sample stages, as deep (up to four) as two resident
+//     blocks per SM allow (explicit_ring), filled by one producer warp
+//     with `cp.async.bulk`: one 1-D copy per obs row and ONE copy of the
+//     stage's kXS contiguous matrix rows (a TMA tensor map cannot take
+//     the matrix: its 228-byte row pitch is not a multiple of 16); with
+//     four stages of 27 KB, up to three are in flight per block;
+//   - A fragments (lags x samples) straight from the [n][w_n] stage (the
+//     odd pitch of 57 leaves few bank conflicts), B fragments from the
+//     obs rows as in the window form; lags past NL in the last m16 tile
+//     read neighbouring floats, and their rows of the result are dropped;
+//   - each stage's chain is added to an IEEE fp32 sum per lane, in
+//     registers; the K-halves and the chunks are summed in a fixed order
+//     (the second pass), so two launches give the same bits;
+//   - the K tail is masked in the kernel: the last rows of the matrix go
+//     by a bulk copy of whole 16-byte units and at most three plain
+//     loads, so the receiver's cached matrix is never copied per call.
+//   The launcher refuses every layout but the window form's and this
+//   row-major one (w_l = 1, w_n >= NL).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-// ---------------------------------------------------------------------
-// Explicit (K, NL) form: fp32 FFMA
-// ---------------------------------------------------------------------
-constexpr int kThreads = 256;
-constexpr int kPT = 4;    // codes per thread
-constexpr int kLT = 8;    // lags per thread
-constexpr int kKT = 128;  // samples staged per step
 
 struct Args {
   const float* obs;
@@ -81,150 +100,10 @@ struct Args {
   const float* w;
   int64_t w_g, w_n, w_l, w_off, w_len;
   int P, K, NL;
-  int kb;       // samples per block (multiple of kKT)
+  int kb;       // samples per block
   int nchunk;   // ceil(K / kb)
-  int tiles_p;  // ceil(P / kPT)
-  int tiles_l;  // ceil(NL / kLT)
-  int tb;       // tiles per block
-  int ns;       // n-slices per block
   float* part;  // (G, nchunk, 2, P, NL) partial sums
 };
-
-__global__ void __launch_bounds__(kThreads)
-    lagbank_explicit_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int PP = a.tiles_p * kPT;   // padded codes
-  const int NLP = a.tiles_l * kLT;  // padded lags
-  // obs staged as [c][j][p] so a thread's kPT codes are one float4
-  float* s_obs = smem;
-  float* s_w = smem + 2 * kKT * PP;
-
-  const int g = blockIdx.y;
-  const int chunk = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lt = tid % a.tb;
-  const int slice = tid / a.tb;
-  const int tile = blockIdx.z * a.tb + lt;
-  const bool active = slice < a.ns && tile < a.tiles_p * a.tiles_l;
-  const int p0 = (tile / a.tiles_l) * kPT;
-  const int l0 = (tile % a.tiles_l) * kLT;
-  // this slice's contiguous run of staged samples
-  const int run = (kKT + a.ns - 1) / a.ns;
-  const int j_lo = min(slice * run, kKT);
-  const int j_hi = min(j_lo + run, kKT);
-
-  float acc_re[kPT][kLT];
-  float acc_im[kPT][kLT];
-#pragma unroll
-  for (int i = 0; i < kPT; ++i) {
-#pragma unroll
-    for (int q = 0; q < kLT; ++q) {
-      acc_re[i][q] = 0.f;
-      acc_im[i][q] = 0.f;
-    }
-  }
-
-  const float* obs_g = a.obs + (int64_t)g * a.obs_g;
-  const float* w_g = a.w + (int64_t)g * a.w_g;
-  const int64_t k_begin = (int64_t)chunk * a.kb;
-  const int64_t k_stop = k_begin + a.kb;
-  const int64_t k_end = k_stop < a.K ? k_stop : (int64_t)a.K;
-
-  for (int64_t n0 = k_begin; n0 < k_end; n0 += kKT) {
-    // -- stage obs (zero past K and for padded codes) -----------------
-    for (int i = tid; i < 2 * PP * kKT; i += kThreads) {
-      const int col = i % kKT;
-      const int row = i / kKT;  // c * PP + p
-      const int c = row / PP;
-      const int p = row % PP;
-      const int64_t n = n0 + col;
-      float v = 0.f;
-      if (p < a.P && n < k_end) v = obs_g[c * a.obs_c + p * a.obs_p + n];
-      s_obs[(c * kKT + col) * PP + p] = v;
-    }
-    // -- stage the lag matrix -----------------------------------------
-    for (int i = tid; i < kKT * NLP; i += kThreads) {
-      const int j = i / NLP;
-      const int l = i % NLP;
-      const int64_t n = n0 + j;
-      float v = 0.f;
-      if (l < a.NL && n < k_end) {
-        const int64_t idx = a.w_off + n * a.w_n + (int64_t)l * a.w_l;
-        if (idx >= 0 && idx < a.w_len) v = w_g[idx];
-      }
-      s_w[i] = v;
-    }
-    __syncthreads();
-
-    if (active && j_lo < j_hi) {
-      for (int j = j_lo; j < j_hi; ++j) {
-        const float4 lo = *reinterpret_cast<const float4*>(&s_w[j * NLP + l0]);
-        const float4 hi =
-            *reinterpret_cast<const float4*>(&s_w[j * NLP + l0 + 4]);
-        const float wv[kLT] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        const float4 o_re =
-            *reinterpret_cast<const float4*>(&s_obs[j * PP + p0]);
-        const float4 o_im =
-            *reinterpret_cast<const float4*>(&s_obs[(kKT + j) * PP + p0]);
-        const float ore[kPT] = {o_re.x, o_re.y, o_re.z, o_re.w};
-        const float oim[kPT] = {o_im.x, o_im.y, o_im.z, o_im.w};
-#pragma unroll
-        for (int i = 0; i < kPT; ++i) {
-#pragma unroll
-          for (int q = 0; q < kLT; ++q) {
-            acc_re[i][q] = fmaf(ore[i], wv[q], acc_re[i][q]);
-            acc_im[i][q] = fmaf(oim[i], wv[q], acc_im[i][q]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // -- sum the n-slices into slice 0, in slice order -------------------
-  float* red = smem;  // tb x (2 kPT kLT), laid out [value][tile]
-  for (int s = 1; s < a.ns; ++s) {
-    if (active && slice == s) {
-#pragma unroll
-      for (int i = 0; i < kPT; ++i) {
-#pragma unroll
-        for (int q = 0; q < kLT; ++q) {
-          red[((0 * kPT + i) * kLT + q) * a.tb + lt] = acc_re[i][q];
-          red[((1 * kPT + i) * kLT + q) * a.tb + lt] = acc_im[i][q];
-        }
-      }
-    }
-    __syncthreads();
-    if (active && slice == 0) {
-#pragma unroll
-      for (int i = 0; i < kPT; ++i) {
-#pragma unroll
-        for (int q = 0; q < kLT; ++q) {
-          acc_re[i][q] += red[((0 * kPT + i) * kLT + q) * a.tb + lt];
-          acc_im[i][q] += red[((1 * kPT + i) * kLT + q) * a.tb + lt];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (active && slice == 0) {
-    const int64_t pl = (int64_t)a.P * a.NL;
-    float* out = a.part + ((int64_t)g * a.nchunk + chunk) * 2 * pl;
-#pragma unroll
-    for (int i = 0; i < kPT; ++i) {
-      const int p = p0 + i;
-      if (p >= a.P) continue;
-#pragma unroll
-      for (int q = 0; q < kLT; ++q) {
-        const int l = l0 + q;
-        if (l >= a.NL) continue;
-        out[(int64_t)p * a.NL + l] = acc_re[i][q];
-        out[pl + (int64_t)p * a.NL + l] = acc_im[i][q];
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------
 // Window form: 3xTF32 mma.sync fed by a cp.async.bulk ring
@@ -521,6 +400,235 @@ __global__ void __launch_bounds__(kWinThreads, 2)
 }
 
 // ---------------------------------------------------------------------
+// Explicit (K, NL) form: 3xTF32 mma.sync fed by a cp.async.bulk ring of
+// both operands
+// ---------------------------------------------------------------------
+constexpr int kXS = 64;                // samples (matrix rows) per ring stage
+constexpr int kXPart = kXS / kKSplit;  // samples per consumer warp and stage
+constexpr int kXRowStride = kXS + 4;   // conflict-free B-fragment loads
+constexpr int kXObsFloats = kRows * kXRowStride;
+constexpr int kXMaxRing = 4;
+static_assert(kXPart % 8 == 0, "whole k8 steps per consumer warp");
+static_assert(kKSplit == 2, "one K part hands its sums to the other");
+static_assert(kRowGroups * kVals * 32 <= 2 * kXObsFloats,
+              "the K parts' exchange fits in two obs stages");
+
+struct XArgs {
+  const float* obs;
+  int64_t obs_g, obs_c, obs_p;  // element strides; stride along n is 1
+  const float* w;               // W_g[n, l] = w[g*w_g + n*w_n + l]
+  int64_t w_g, w_n;
+  int P, K, NL;
+  int kb;       // samples per block (a multiple of 4)
+  int nchunk;   // ceil(K / kb)
+  int rblocks;  // ceil(2P / kRows)
+  int ring;     // ring stages, 2..kXMaxRing
+  float* part;  // (G, nchunk, 2, P, NL) partial sums
+};
+
+// One consumer warp's part of one explicit-form stage: kXPart / 8 k8 steps.
+//   st: this lane's B element of the stage, row (row group + n/4), sample tq
+//   wt: this lane's A element, stage row (part's first sample + tq), lag gq
+//       of the block's first m16 tile
+//   wn: the stage's row pitch (the matrix's)
+//   lim: valid samples in this part (MASK: zero the rest of A and B, whose
+//        shared memory holds whatever an earlier stage left there)
+// A fragment of m-tile i at k8 step jj (fragment rows are lags):
+//   a0 = W[8jj + tq][16i + gq], a1 = W[8jj + tq][16i + gq + 8],
+//   a2 = W[8jj + tq + 4][16i + gq], a3 = W[8jj + tq + 4][16i + gq + 8].
+template <bool MASK>
+__device__ __forceinline__ void consume_explicit(float (&acc)[kMT][kNT][4],
+                                                 const float* __restrict__ st,
+                                                 const float* __restrict__ wt,
+                                                 int wn, int tq, int lim) {
+#pragma unroll
+  for (int jj = 0; jj < kXPart / 8; ++jj) {
+    const float* w0 = wt + 8 * jj * wn;
+    const float* w1 = w0 + 4 * wn;
+    const bool ok0 = !MASK || 8 * jj + tq < lim;
+    const bool ok1 = !MASK || 8 * jj + tq + 4 < lim;
+    uint32_t ab[kMT][4], as[kMT][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+      split_tf32(ok0 ? w0[16 * i] : 0.f, ab[i][0], as[i][0]);
+      split_tf32(ok0 ? w0[16 * i + 8] : 0.f, ab[i][1], as[i][1]);
+      split_tf32(ok1 ? w1[16 * i] : 0.f, ab[i][2], as[i][2]);
+      split_tf32(ok1 ? w1[16 * i + 8] : 0.f, ab[i][3], as[i][3]);
+    }
+    uint32_t bb[kNT][2], bs[kNT][2];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const float x0 = st[n * 8 * kXRowStride + 8 * jj];
+      const float x1 = st[n * 8 * kXRowStride + 8 * jj + 4];
+      split_tf32(ok0 ? x0 : 0.f, bb[n][0], bs[n][0]);
+      split_tf32(ok1 ? x1 : 0.f, bb[n][1], bs[n][1]);
+    }
+    // the small cross terms first, then big*big
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        mma_tf32(acc[i][n], as[i][0], as[i][1], as[i][2], as[i][3], bb[n][0],
+                 bb[n][1]);
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        mma_tf32(acc[i][n], ab[i][0], ab[i][1], ab[i][2], ab[i][3], bs[n][0],
+                 bs[n][1]);
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        mma_tf32(acc[i][n], ab[i][0], ab[i][1], ab[i][2], ab[i][3], bb[n][0],
+                 bb[n][1]);
+  }
+}
+
+// One block per (K-chunk, channel, row block x lag block); shared memory
+// holds the barriers, the ring's matrix stages, then its obs stages.
+__global__ void __launch_bounds__(kWinThreads, 2)
+    lagbank_explicit_kernel(const XArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + a.ring;
+  const int wn = (int)a.w_n;
+  const int w_stage = kXS * wn;  // floats of one stage's matrix rows
+  float* w_ring = reinterpret_cast<float*>(empty + a.ring);
+  float* x_ring = w_ring + a.ring * w_stage;
+
+  const int chunk = blockIdx.x;
+  const int g = blockIdx.y;
+  const int r0 = (blockIdx.z % a.rblocks) * kRows;
+  const int lb = (blockIdx.z / a.rblocks) * kLags;
+  const int rows = min(kRows, 2 * a.P - r0);
+  const int64_t k_begin = (int64_t)chunk * a.kb;
+  const int len = (int)min((int64_t)a.kb, (int64_t)a.K - k_begin);
+  const int nsteps = (len + kXS - 1) / kXS;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.ring; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int kw = warp % kKSplit;  // K part of each stage
+  const int nw = warp / kKSplit;  // row group of the block
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  float sum[kMT][kNT][4];  // this lane's IEEE fp32 sums
+
+  if (warp == kConsumerWarps) {
+    // -- producer: per stage one bulk copy of the matrix rows, one per obs row
+    const float* obs_g = a.obs + (int64_t)g * a.obs_g + k_begin;
+    const float* w_g = a.w + (int64_t)g * a.w_g + k_begin * a.w_n;
+    for (int step = 0; step < nsteps; ++step) {
+      const int s = step % a.ring;
+      if (step >= a.ring) mbar_wait(&empty[s], (step / a.ring - 1) & 1);
+      const int n0 = step * kXS;
+      const int lim = min(kXS, len - n0);
+      // obs rows in whole float4s: each row holds K rounded up to 4
+      const uint32_t x_bytes = 16u * (uint32_t)((lim + 3) / 4);
+      // the stage's matrix rows end at lag NL - 1 of its last row; the
+      // bulk copy takes whole 16-byte units, plain loads the rest
+      const uint32_t w_floats = (uint32_t)((lim - 1) * wn + a.NL);
+      const uint32_t w_bulk = (4u * w_floats) & ~15u;
+      const float* wsrc = w_g + (int64_t)n0 * a.w_n;
+      float* wdst = w_ring + s * w_stage;
+      if (lane == 0) {
+        for (uint32_t i = w_bulk / 4; i < w_floats; ++i) wdst[i] = wsrc[i];
+        mbar_arrive_expect_tx(&full[s], x_bytes * rows + w_bulk);
+      }
+      __syncwarp();
+      if (lane == 0 && w_bulk > 0) {
+        bulk_g2s(wdst, wsrc, w_bulk, &full[s]);
+      }
+      float* xdst = x_ring + s * kXObsFloats;
+      for (int r = lane; r < rows; r += 32) {
+        const int rr = r0 + r;
+        const int c = rr / a.P;
+        const int p = rr - c * a.P;
+        bulk_g2s(xdst + r * kXRowStride, obs_g + c * a.obs_c + p * a.obs_p + n0,
+                 x_bytes, &full[s]);
+      }
+    }
+  } else {
+    // -- consumers --------------------------------------------------------
+    float acc[kMT][kNT][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = sum[i][n][e] = 0.f;
+    const int jbeg = kw * kXPart;
+    for (int step = 0; step < nsteps; ++step) {
+      const int s = step % a.ring;
+      mbar_wait(&full[s], (step / a.ring) & 1);
+      const int lim = min(kXS, len - step * kXS) - jbeg;
+      const float* st = x_ring + s * kXObsFloats +
+                        (nw * kNT * 8 + gq) * kXRowStride + jbeg + tq;
+      const float* wt = w_ring + s * w_stage + (jbeg + tq) * wn + lb + gq;
+      if (lim >= kXPart) {
+        consume_explicit<false>(acc, st, wt, wn, tq, lim);
+      } else if (lim > 0) {
+        consume_explicit<true>(acc, st, wt, wn, tq, lim);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      // the tensor core adds with truncation: one stage's chain, then the
+      // IEEE fp32 sum
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sum[i][n][e] += acc[i][n][e];
+            acc[i][n][e] = 0.f;
+          }
+    }
+  }
+  __syncthreads();
+
+  // -- K part 1 of each row group hands its sums to K part 0 through the
+  //    obs ring (every copy has landed and been read); part 0 adds them in
+  //    order and stores the block's partial
+  float* xch = x_ring + nw * kVals * 32 + lane;
+  if (warp < kConsumerWarps && kw == 1) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[((i * kNT + n) * 4 + e) * 32] = sum[i][n][e];
+  }
+  __syncthreads();
+  if (warp < kConsumerWarps && kw == 0) {
+    const int two_p = 2 * a.P;
+    float* out = a.part + ((int64_t)g * a.nchunk + chunk) * two_p * a.NL;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = sum[i][n][e] + xch[((i * kNT + n) * 4 + e) * 32];
+          // D fragment: row (lag) gq (+8 for e >= 2), column (obs row)
+          // 2 tq + (e & 1)
+          const int l = lb + 16 * i + gq + (e >> 1) * 8;
+          const int r = r0 + nw * kNT * 8 + n * 8 + 2 * tq + (e & 1);
+          if (l < a.NL && r < two_p) out[(int64_t)r * a.NL + l] = v;
+        }
+  }
+}
+
+// ---------------------------------------------------------------------
 // Second pass: sum the K-chunks in order, fused power / phase epilogue
 // ---------------------------------------------------------------------
 constexpr int kFinOut = 32;    // outputs per finalize block (one per lane)
@@ -567,26 +675,80 @@ __global__ void __launch_bounds__(kFinOut * kFinGroups)
   im_out[idx] = im;
 }
 
-int launch_explicit(const Args& a0, int G, cudaStream_t s) {
-  Args a = a0;
-  a.tiles_p = (a.P + kPT - 1) / kPT;
-  a.tiles_l = (a.NL + kLT - 1) / kLT;
-  const int tiles = a.tiles_p * a.tiles_l;
-  a.tb = tiles < kThreads ? tiles : kThreads;
-  a.ns = kThreads / a.tb;
-  const size_t PP = (size_t)a.tiles_p * kPT;
-  const size_t NLP = (size_t)a.tiles_l * kLT;
-  const size_t stage = (2 * kKT * PP + kKT * NLP) * sizeof(float);
-  const size_t red =
-      a.ns > 1 ? (size_t)a.tb * 2 * kPT * kLT * sizeof(float) : 0;
-  const size_t smem = stage > red ? stage : red;
-  if (a.kb % kKT != 0 || smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      lagbank_explicit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+constexpr int kMaxDevices = 64;
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device, calling cudaFuncSetAttribute only when a launch needs more than
+// it has allowed there so far (`allowed`, bytes per device): a call per
+// launch would cost more host time than a short launch's kernels take.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, int (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && (size_t)allowed[dev] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = (int)smem;
+  return err;
+}
+
+// The explicit form's shared memory: the ring's barriers, matrix stages
+// and obs stages
+size_t explicit_smem(int ring, int64_t w_n) {
+  return 2 * (size_t)ring * sizeof(uint64_t) +
+         (size_t)ring * ((size_t)kXS * w_n + kXObsFloats) * sizeof(float);
+}
+
+// The explicit form's ring: the deepest (at most kXMaxRing stages) that
+// keeps two blocks resident per SM (228 KB of shared memory, 1 KB of it
+// reserved per block), else two stages in one block's 227 KB; 0 when
+// even that does not fit the matrix's row pitch `w_n`.
+int explicit_ring(int64_t w_n) {
+  for (int ring = kXMaxRing; ring > 2; --ring)
+    if (2 * (explicit_smem(ring, w_n) + 1024) <= 228 * 1024) return ring;
+  return explicit_smem(2, w_n) <= 227 * 1024 ? 2 : 0;
+}
+
+int launch_explicit(const Args& a, int G, cudaStream_t s) {
+  // bulk copies move 16-byte-aligned runs of whole float4s: obs rows and
+  // the matrix's stages (rows from a multiple of 4, so any row pitch)
+  const float* w = a.w + a.w_off;
+  const bool aligned = reinterpret_cast<uintptr_t>(a.obs) % 16 == 0 &&
+                       a.obs_g % 4 == 0 && a.obs_c % 4 == 0 &&
+                       a.obs_p % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       a.w_g % 4 == 0 && a.kb % 4 == 0;
+  // every read within the channel's [0, w_len)
+  const bool inside = a.w_off >= 0 && a.w_n >= a.NL &&
+                      a.w_off + (int64_t)(a.K - 1) * a.w_n + a.NL <= a.w_len;
+  const int ring = explicit_ring(a.w_n);
+  if (!aligned || !inside || ring == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = explicit_smem(ring, a.w_n);
+  XArgs x;
+  x.obs = a.obs;
+  x.obs_g = a.obs_g;
+  x.obs_c = a.obs_c;
+  x.obs_p = a.obs_p;
+  x.w = w;
+  x.w_g = a.w_g;
+  x.w_n = a.w_n;
+  x.P = a.P;
+  x.K = a.K;
+  x.NL = a.NL;
+  x.kb = a.kb;
+  x.nchunk = a.nchunk;
+  x.rblocks = (2 * a.P + kRows - 1) / kRows;
+  x.ring = ring;
+  x.part = a.part;
+  const int lblocks = (a.NL + kLags - 1) / kLags;
+  if ((int64_t)x.rblocks * lblocks > 65535)
+    return (int)cudaErrorInvalidValue;
+  static int allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(lagbank_explicit_kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.nchunk, G, (tiles + a.tb - 1) / a.tb);
-  lagbank_explicit_kernel<<<grid, kThreads, smem, s>>>(a);
+  const dim3 grid(a.nchunk, G, x.rblocks * lblocks);
+  lagbank_explicit_kernel<<<grid, kWinThreads, smem, s>>>(x);
   return (int)cudaGetLastError();
 }
 
@@ -620,34 +782,63 @@ int launch_window(const Args& a, int G, cudaStream_t s) {
           sizeof(float);
   if (smem > 227 * 1024 || (int64_t)w.rblocks * lblocks > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      lagbank_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static int allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(lagbank_window_kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.nchunk, G, w.rblocks * lblocks);
   lagbank_window_kernel<<<grid, kWinThreads, smem, s>>>(w);
   return (int)cudaGetLastError();
 }
 
+// Makes `device` current for the launches and gives the caller's current
+// device back at the end of the scope.
+struct DeviceGuard {
+  int prev = 0;
+  bool switched = false;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) {
+      err = cudaSetDevice(device);
+      switched = err == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched) cudaSetDevice(prev);
+  }
+};
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  All pointers are device
 // pointers; `part` is caller-allocated scratch of G*nchunk*2*P*NL floats
-// with nchunk = ceil(K / kb).  The window layout (w_n = 1, w_l = -1) takes
-// the tensor-core kernel and needs 16-byte-aligned obs rows (obs pointer
-// aligned, strides and K multiples of 4); any other layout takes the FFMA
-// kernel.  Launches on `stream`, does not synchronise, and returns the
-// cudaError_t of the launches (0 = success).
+// with nchunk = ceil(K / kb).  Two layouts of W, every other refused:
+// - the window layout (w_n = 1, w_l = -1) takes the window kernel and
+//   needs 16-byte-aligned obs rows (obs pointer aligned, strides and K
+//   multiples of 4);
+// - the row-major layout (w_l = 1, w_n >= NL) takes the explicit kernel,
+//   over chunks of kb samples (a multiple of 4, which
+//   ops/lagbank.explicit_chunk picks) with the ring of explicit_ring(w_n);
+//   it needs 16-byte-aligned obs (pointer aligned, strides multiples of
+//   4, each row holding K rounded up to 4 floats) and W (w + w_off
+//   aligned, w_g a multiple of 4), every read of W within a channel's
+//   [0, w_len), and a pitch w_n for which a two-stage ring fits a block.
+// Launches on `stream` of CUDA device `device` (made current for the
+// launches, the caller's current device restored), does not synchronise,
+// and returns the cudaError_t of the launches (0 = success).
 extern "C" int lagbank_launch(const float* obs, long long obs_g,
                               long long obs_c, long long obs_p,
                               const float* w, long long w_g, long long w_n,
                               long long w_l, long long w_off, long long w_len,
-                              int G, int P, int K, int NL, int kb, float scale,
-                              float* part, float* power, float* phase,
-                              float* re, float* im, void* stream) {
+                              int G, int P, int K, int NL, int kb,
+                              float scale, float* part, float* power,
+                              float* phase, float* re, float* im,
+                              int device, void* stream) {
   if (G <= 0 || P <= 0 || K <= 0 || NL <= 0 || kb <= 0 || G > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+  const DeviceGuard on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   Args a = {};
   a.obs = obs;
   a.obs_g = obs_g;
@@ -667,8 +858,12 @@ extern "C" int lagbank_launch(const float* obs, long long obs_g,
   a.part = part;
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool window = (w_n == 1 && w_l == -1);
-  const int err = window ? launch_window(a, G, s) : launch_explicit(a, G, s);
+  int err = (int)cudaErrorInvalidValue;
+  if (w_n == 1 && w_l == -1) {
+    err = launch_window(a, G, s);
+  } else if (w_l == 1) {
+    err = launch_explicit(a, G, s);
+  }
   if (err != 0) return err;
 
   const int64_t total = (int64_t)G * P * NL;

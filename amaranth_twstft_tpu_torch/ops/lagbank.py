@@ -24,23 +24,29 @@ on a CUDA tensor it launches the kernel or raises — there is no fallback.
 ``lag_bank_correlate.launches`` those of the explicit form (the host
 receiver's, ``models/dllpll.Receiver``).
 
-Bound on the card (see the source note in ``csrc/lagbank.cu``): the
-window form runs on the tensor cores as compensated 3xTF32 products
-(``mma.sync`` m16n8k8, each operand split into two tf32 parts, each
-stage's partial added to an IEEE fp32 sum: fp32-class error, so PARITY
-deviation 12 holds), fed by ``cp.async.bulk`` copies of obs through a
-shared-memory ring.  Its floor is reading obs once from device memory,
-but on the H100 the products alone take longer than the copies alone
+Bound on the card (see the source note in ``csrc/lagbank.cu``): both
+forms run on the tensor cores as compensated 3xTF32 products (``mma.sync``
+m16n8k8, each operand split into two tf32 parts, each stage's partial
+added to an IEEE fp32 sum: fp32-class error, so PARITY deviation 12
+holds), fed by ``cp.async.bulk`` copies through a shared-memory ring.
+The window form's floor is reading obs once, but on the H100 its
+products alone take longer than its copies alone
 (``tools/gpu_lagbank_probe.py``): ``mma.sync``'s rate bounds it, and
-``wgmma`` is the next step.  The bulk copies need 16-byte-aligned rows:
-:func:`lag_bank_windows` pads obs with zeros to a K that is a multiple of
-4 where it is not.  The explicit (K, NL) form stays on fp32 FFMA.
-torch's own TF32 stays off (``check_no_tf32``).
+``wgmma`` is the next step.  The explicit (K, NL) form streams both obs
+and the lag matrix (one bulk copy per obs row and one per stage of matrix
+rows) over a split-K grid of two resident blocks per SM
+(:func:`explicit_chunk`); its floor is reading both once (0.0251 ms
+at the host receiver's (2, 24, 200 000) x (200 000, 57)), with the
+products (0.0066 ms at the TF32 peak) under the copies.  The bulk copies
+need 16-byte-aligned rows: the wrappers pad obs with zeros to a K that is
+a multiple of 4 where it is not, and copy a lag matrix only when its data
+is not 16-byte aligned.  torch's own TF32 stays off (``check_no_tf32``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -55,12 +61,20 @@ __all__ = [
     "lag_bank_windows_plain",
     "lag_bank_errors",
     "lag_bank_kernel",
+    "explicit_chunk",
     "K_BLOCK",
 ]
 
 #: samples of K per thread block (a multiple of the kernel's 128-sample
 #: staging step); the second pass sums ceil(K / K_BLOCK) partials
 K_BLOCK = 2048
+
+#: K-chunks per SM and channel that the explicit form's split aims at:
+#: its launcher keeps two blocks resident per SM
+_CHUNKS_PER_SM = 2
+#: the explicit form's shortest chunk, samples: a block's set-up and the
+#: write of its partial stay small against the samples it reads
+_MIN_CHUNK = 64
 
 _TWO_PI = 2.0 * math.pi
 
@@ -73,16 +87,22 @@ _ARGTYPES = (
     + [_c_int] * 5  # G, P, K, NL, kb
     + [ctypes.c_float]  # power scale
     + [_c_ptr] * 5  # part, power, phase, re, im
-    + [_c_ptr]  # stream
+    + [_c_int, _c_ptr]  # device, stream
 )
 
 
+@functools.cache
 def _lib_fn():
     lib = cuda_build.load("lagbank")
     fn = lib.lagbank_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_inputs(*ts: torch.Tensor) -> None:
@@ -92,6 +112,44 @@ def _check_inputs(*ts: torch.Tensor) -> None:
             raise TypeError(f"lag bank takes float32, got {t.dtype}")
         if t.device != dev:
             raise ValueError("lag bank inputs lie on different devices")
+
+
+def explicit_chunk(G: int, K: int, n_sm: int) -> int:
+    """Samples of K per block of the explicit form: a multiple of 4, so
+    that every chunk's rows start 16-byte aligned, that splits each of
+    the G channels' K into enough chunks for two blocks on each of
+    ``n_sm`` SMs (264 chunks of 760 at K = 200 000, G = 1 on an H100's
+    132 SMs), and at least ``_MIN_CHUNK``.  The second pass sums
+    ceil(K / chunk) partials; the kernel's launcher picks its ring and
+    shared memory."""
+    want = -(-_CHUNKS_PER_SM * n_sm // G)
+    return max(_MIN_CHUNK, 4 * -(-K // (4 * want)))
+
+
+def _launch(obs, w, G, P, K, NL, obs_strides, w_layout, power_scale) -> torch.Tensor:
+    """One launch of the kernel (see :func:`lag_bank_kernel`); returns
+    power, phase, re and im stacked, (4, G, P, NL).  Host time per call
+    matters here: at the host shape the kernels take ~0.04 ms."""
+    if obs.device.type != "cuda" or w.device.type != "cuda":
+        raise ValueError("lag_bank_kernel needs CUDA tensors")
+    check_no_tf32()
+    dev = obs.device
+    kb = explicit_chunk(G, K, _sm_count(dev.index)) if w_layout[2] == 1 else K_BLOCK
+    nchunk = -(-K // kb)
+    part = torch.empty(G * nchunk * 2 * P * NL, dtype=torch.float32, device=dev)
+    out = torch.empty((4, G, P, NL), dtype=torch.float32, device=dev)
+    base, n = out.data_ptr(), 4 * G * P * NL  # bytes of one output
+    err = _lib_fn()(
+        obs.data_ptr(), *obs_strides,
+        w.data_ptr(), *w_layout,
+        G, P, K, NL, kb, power_scale,
+        part.data_ptr(), base, base + n, base + 2 * n, base + 3 * n,
+        dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+    )
+    if err != 0:
+        raise RuntimeError(f"lagbank kernel launch failed (cudaError {err})")
+    lag_bank_kernel.launches += 1
+    return out
 
 
 def lag_bank_kernel(
@@ -106,43 +164,43 @@ def lag_bank_kernel(
     w_layout: tuple[int, int, int, int, int],
     power_scale: float,
 ):
-    """Launch ``csrc/lagbank.cu`` on CUDA tensors (no synchronisation).
+    """Launch ``csrc/lagbank.cu`` on CUDA tensors, on the current stream
+    of their device (no synchronisation).
 
     ``obs``: float32 with unit stride along n and element strides
     ``obs_strides = (channel, re/im, code)``; ``w``: float32 with
     ``W_g[n,l] = w.flat[g*ws_g + off + n*ws_n + l*ws_l]`` for
-    ``w_layout = (ws_g, ws_n, ws_l, off, extent)`` (reads outside
-    ``[0, extent)`` of a channel's row count as zero).  The window layout
-    ``ws_n = 1, ws_l = -1`` takes the tensor-core kernel, which needs a
-    16-byte-aligned ``obs`` and strides and K that are multiples of 4 (the
-    launch fails otherwise).  Returns power, phase, re, im, each
-    (G, P, NL) float32.
+    ``w_layout = (ws_g, ws_n, ws_l, off, extent)``.  Two layouts:
+
+    - the window layout ``ws_n = 1, ws_l = -1`` (reads outside
+      ``[0, extent)`` of a channel's row count as zero) needs a
+      16-byte-aligned ``obs`` and strides and K that are multiples of 4;
+    - the row-major layout ``ws_l = 1, ws_n >= NL`` (the explicit form,
+      split by :func:`explicit_chunk`) needs a 16-byte-aligned ``obs``
+      with strides that are multiples of 4 and rows that hold K rounded
+      up to 4 floats, ``w``'s data plus ``off`` 16-byte aligned, ``ws_g``
+      a multiple of 4, every read inside ``[0, extent)``, and a pitch
+      ``ws_n`` for which the kernel's two-stage ring fits one block's
+      shared memory.
+
+    The launch fails on any other layout or alignment.  Returns power,
+    phase, re, im, each (G, P, NL) float32.
     """
-    if obs.device.type != "cuda" or w.device.type != "cuda":
-        raise ValueError("lag_bank_kernel needs CUDA tensors")
-    check_no_tf32()
-    fn = _lib_fn()
-    dev = obs.device
-    nchunk = -(-K // K_BLOCK)
-    part = torch.empty(G * nchunk * 2 * P * NL, dtype=torch.float32, device=dev)
-    outs = [torch.empty((G, P, NL), dtype=torch.float32, device=dev)
-            for _ in range(4)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            obs.data_ptr(), *obs_strides,
-            w.data_ptr(), *w_layout,
-            G, P, K, NL, K_BLOCK, power_scale,
-            part.data_ptr(), *(o.data_ptr() for o in outs),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"lagbank kernel launch failed (cudaError {err})")
-    lag_bank_kernel.launches += 1
-    return tuple(outs)
+    return _launch(obs, w, G, P, K, NL, obs_strides, w_layout, power_scale).unbind(0)
 
 
 lag_bank_kernel.launches = 0
+
+
+def _aligned_obs(obs: torch.Tensor) -> torch.Tensor:
+    """``obs`` contiguous, 16-byte aligned and padded with zeros to a
+    multiple of 4 samples, as the kernels' bulk copies take its rows (zero
+    samples past K add nothing to the sums)."""
+    obs = obs.contiguous()
+    pad = -obs.shape[-1] % 4
+    if pad:
+        return torch.nn.functional.pad(obs, (0, pad))
+    return obs.clone() if obs.data_ptr() % 16 else obs
 
 
 def _epilogue(re, im, power_scale):
@@ -178,16 +236,15 @@ def lag_bank_correlate(obs_ri: torch.Tensor, wav_lags: torch.Tensor):
     NL = wav_lags.shape[1]
     if obs_ri.device.type == "cpu":
         return lag_bank_plain(obs_ri, wav_lags)
-    obs = obs_ri.contiguous()
+    obs = _aligned_obs(obs_ri)
+    K4 = obs.shape[-1]
+    # the receiver's cached matrix is aligned: no per-call copy of it
     w = wav_lags.contiguous()
-    power, phase, _, _ = lag_bank_kernel(
-        obs, w, G=1, P=C, K=K, NL=NL,
-        obs_strides=(0, C * K, K),
-        w_layout=(0, NL, 1, 0, K * NL),
-        power_scale=0.5,
-    )
+    if w.data_ptr() % 16:
+        w = w.clone()
+    out = _launch(obs, w, 1, C, K, NL, (0, C * K4, K4), (0, NL, 1, 0, K * NL), 0.5)
     lag_bank_correlate.launches += 1
-    return power[0], phase[0]
+    return out[0, 0], out[1, 0]
 
 
 lag_bank_correlate.launches = 0
@@ -242,13 +299,8 @@ def lag_bank_windows(
         )
     if obs.device.type == "cpu":
         return lag_bank_windows_plain(obs, wav_ext, nlag, power_scale)
-    obs = obs.contiguous()
-    pad = -K % 4
-    if pad or obs.data_ptr() % 16:
-        # the kernel's bulk copies take whole, 16-byte-aligned float4 rows;
-        # zero samples past K add nothing to the sums
-        obs = torch.nn.functional.pad(obs, (0, pad)) if pad else obs.clone()
-    K4 = K + pad
+    obs = _aligned_obs(obs)
+    K4 = obs.shape[-1]
     w = wav_ext.contiguous()
     return lag_bank_kernel(
         obs, w, G=G, P=P, K=K4, NL=2 * nlag + 1,

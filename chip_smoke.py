@@ -105,8 +105,13 @@ capture):
 19. runs the banked ``dllpll`` on the same capture and ``sdr.param``
     (within 0.5 Hz and a quarter sample of the host receiver);
 20. holds the explicit form against its plain version and float64 on the
-    host path's last-launch inputs, (2, 24, 200 000) x (200 000, 57), and
-    times it, its plain version and ``torch.matmul`` of the same product;
+    host path's last-launch inputs, (2, 24, 200 000) x (200 000, 57) (its
+    power and phase errors against float64 may each be at most 4x the
+    float32 plain version's), checks that two launches give the same bits,
+    and times it (CUDA events, the host's wall of calls that do not wait
+    for the card, and device time from ``torch.profiler``), its plain
+    version and ``torch.matmul`` of the same product, and the form at
+    K = 257;
 21. grows a new file from the GoRanging capture in 1-s appends, one per
     second as a receiver writes (a writer thread), while ``monitor --serve PORT --timeout 3`` tails it on the
     card, with a subscriber thread;
@@ -1309,30 +1314,57 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
     obs, w = last["obs"], last["w"]
     _, C, K = obs.shape
     nl = w.shape[1]
+    kern = lagbank.lag_bank_correlate(obs, w)
+    again = lagbank.lag_bank_correlate(obs, w)
+    if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+        raise RuntimeError("two launches of the explicit form differ")
+    log("explicit-form determinism: two launches give the same bits")
+    plain = lagbank.lag_bank_plain(obs, w)
     abs_err, rel_err, ph_err = compare_lag_banks(
         f"explicit form on the --host path's last launch, (2, C, K) x (K, NL) = "
-        f"(2, {C}, {K}) x ({K}, {nl})",
-        lagbank.lag_bank_correlate(obs, w), lagbank.lag_bank_plain(obs, w))
+        f"(2, {C}, {K}) x ({K}, {nl})", kern, plain)
     ref64 = lagbank.lag_bank_plain(obs.double(), w.double())
-    kern64 = lagbank.lag_bank_errors(lagbank.lag_bank_correlate(obs, w), ref64)
-    plain64 = lagbank.lag_bank_errors(lagbank.lag_bank_plain(obs, w), ref64)
-    del ref64
+    kern64 = lagbank.lag_bank_errors(kern, ref64)
+    plain64 = lagbank.lag_bank_errors(plain, ref64)
+    del ref64, again
+    log(f"explicit form against float64: kernel power err / row max {kern64[0]:.3e}, "
+        f"phase {kern64[1]:.3e} cycles; fp32 plain {plain64[0]:.3e}, {plain64[1]:.3e} "
+        f"cycles (gate: kernel <= {F64_GATE:g} x plain)")
+    if kern64[0] > F64_GATE * plain64[0] or kern64[1] > F64_GATE * plain64[1]:
+        raise RuntimeError("the explicit form fails the float64 gate")
     ms = cuda_ms(lambda: lagbank.lag_bank_correlate(obs, w), 20)
     plain_ms = cuda_ms(lambda: lagbank.lag_bank_plain(obs, w), 10)
     obs2 = obs.reshape(2 * C, K)
     library_ms = cuda_ms(lambda: torch.matmul(obs2, w), 10)
     ms2 = cuda_ms(lambda: lagbank.lag_bank_correlate(obs, w), 20)
+    # host time alone: the wall of 20 calls that do not wait for the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        lagbank.lag_bank_correlate(obs, w)
+    host_ms = 1e3 * (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    # device time alone: a call's host time (checks, two allocations, the
+    # ctypes call) can exceed the kernels' ~0.04 ms on the card's host
+    device_ms, device_ops, _ = profile_device(lambda: lagbank.lag_bank_correlate(obs, w), 10)
+    plain_device_ms, _, _ = profile_device(lambda: lagbank.lag_bank_plain(obs, w), 10)
+    library_device_ms, _, _ = profile_device(lambda: torch.matmul(obs2, w), 10)
+    o257, w257 = obs[..., :257].contiguous(), w[:257].contiguous()
+    ms_k257 = cuda_ms(lambda: lagbank.lag_bank_correlate(o257, w257), 50)
     flops = 2.0 * 2 * C * nl * K
     nbytes = 4.0 * (obs.numel() + w.numel() + 2 * C * nl)  # + power, phase
     bound_bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    bound_tf32x3_ms = 1e3 * 3 * flops / PEAK_TF32_FLOPS
     bound_fp32_ms = 1e3 * flops / PEAK_FP32_FLOPS
     kernel_ms = min(ms, ms2)
     log(f"explicit form per launch: kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, torch.matmul {library_ms:.4f} ms (CUDA events); bounds: bytes "
-        f"{bound_bytes_ms:.4f} ms ({nbytes:.3e} B), fp32 FMA {bound_fp32_ms:.4f} ms "
-        f"({flops:.3e} FLOP); against float64: kernel power err / row max "
-        f"{kern64[0]:.3e}, phase {kern64[1]:.3e} cycles; fp32 plain {plain64[0]:.3e}, "
-        f"{plain64[1]:.3e} cycles")
+        f"ms, torch.matmul {library_ms:.4f} ms (CUDA events); host time of a call "
+        f"{host_ms:.4f} ms; device time (profiler): "
+        f"kernel {device_ms} ms in {device_ops} kernels, plain {plain_device_ms} ms, "
+        f"torch.matmul {library_device_ms} ms; at K = 257: {ms_k257:.4f} "
+        f"ms; bounds: bytes {bound_bytes_ms:.4f} ms ({nbytes:.3e} B), 3xTF32 "
+        f"{bound_tf32x3_ms:.4f} ms, fp32 FMA {bound_fp32_ms:.4f} ms ({flops:.3e} FLOP); "
+        f"{nbytes / kernel_ms / 1e6:.1f} GB/s")
     # the dense CAF at the acquisition's shape: one production epoch,
     # 81 hypotheses of +-4 kHz in 100 Hz steps (the Queue 2 row)
     from amaranth_twstft_tpu_torch.ops import caf
@@ -1355,7 +1387,7 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
         log(f"  {name} (1 x {nobs} complex64, {len(shifts)} hypotheses): {ms_f:.4f} ms "
             f"per call (CUDA events), device {dev_ms} ms in {ops} device ops (profiler)")
     os.remove(cap)
-    del obs, obs2, w, last, d, fcode, code3
+    del obs, obs2, w, o257, w257, kern, plain, last, d, fcode, code3
     return {
         "host": {
             "seconds": HOST_SECONDS, "channels": len(truths), "wall_s": wall,
@@ -1371,13 +1403,22 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
             "ms_explicit": kernel_ms,
             "plain_ms_explicit": plain_ms,
             "library_ms_explicit": library_ms,
-            "bound_explicit_ms": max(bound_bytes_ms, bound_fp32_ms),
-            "bound_explicit_by": "bytes" if bound_bytes_ms >= bound_fp32_ms else "operations",
+            "device_ms_explicit": device_ms,
+            "host_ms_explicit": host_ms,
+            "plain_device_ms_explicit": plain_device_ms,
+            "library_device_ms_explicit": library_device_ms,
+            "ms_explicit_k257": ms_k257,
+            "bound_explicit_ms": max(bound_bytes_ms, bound_tf32x3_ms),
+            "bound_explicit_by": "bytes" if bound_bytes_ms >= bound_tf32x3_ms else "operations",
+            "bound_explicit_tf32x3_ms": bound_tf32x3_ms,
             "explicit_max_abs_err": abs_err,
             "explicit_err_over_row_max": rel_err,
             "explicit_phase_err_cycles": ph_err,
             "explicit_f64_err": kern64[0],
+            "explicit_f64_phase_err_cycles": kern64[1],
             "explicit_plain_f64_err": plain64[0],
+            "explicit_plain_f64_phase_err_cycles": plain64[1],
+            "explicit_deterministic": True,
         },
     }
 

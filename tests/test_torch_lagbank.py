@@ -1,6 +1,10 @@
 """The port's lag bank (plain version, CPU) against the JAX package's
 XLA dots and its Pallas kernel in interpret mode."""
 
+import ctypes
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,6 +12,7 @@ import torch
 
 from amaranth_twstft_tpu.ops.lagbank import _lag_bank_jnp, lag_bank_pallas
 from amaranth_twstft_tpu_torch.ops import lagbank as tlb
+from amaranth_twstft_tpu_torch.utils import cuda_build
 
 # float32 sums over K ~ 3e3 terms in different orders: power rtol 2e-4
 # (as tests/test_lagbank.py holds Pallas against the dots), phase atol
@@ -169,3 +174,40 @@ def test_tf32x3_split_holds_fp32_tolerances(g, p, k, nlag):
     ref_pw, ref_ph = refs["float64"]
     one_pass_err = np.abs(pw1.numpy() / ref_pw - 1).max()
     assert one_pass_err > 2 * POWER_RTOL or _phase_diff(ph1.numpy(), ref_ph).max() > PHASE_ATOL
+
+
+# -- the explicit form's split of K (pure Python; the kernel's launcher
+#    picks its ring and shared memory, tested on the card) ---------------
+@pytest.mark.parametrize("g,k,n_sm", [
+    (1, 200_000, 132),  # the host receiver's shape on an H100 SXM
+    (1, 200_000, 114),  # an H100 PCIe
+    (1, 257, 132),
+    (1, 4099, 132),
+    (3, 2000, 132),
+    (8, 200_000, 132),  # a group of 8 channels, as the sharded step batches them
+])
+def test_explicit_chunk_covers_k_and_fills_the_card(g, k, n_sm):
+    chunk = tlb.explicit_chunk(g, k, n_sm)
+    nchunk = -(-k // chunk)
+    # the chunks cover K exactly, and each starts on a 16-byte-aligned row
+    assert (nchunk - 1) * chunk < k <= nchunk * chunk
+    assert chunk % 4 == 0
+    # two blocks per SM, unless K is too short for that many chunks
+    assert g * nchunk >= 2 * n_sm or chunk == 64
+    if (g, k, n_sm) == (1, 200_000, 132):
+        assert (chunk, nchunk) == (760, 264)
+
+
+def test_argtypes_match_the_c_entry():
+    """The ctypes binding of ``lagbank_launch`` has the C declaration's
+    arguments, type for type (a mismatch would only show on the card)."""
+    with open(os.path.join(cuda_build.CSRC, "lagbank.cu")) as f:
+        src = f.read()
+    decl = re.search(r'extern "C" int lagbank_launch\((.*?)\)', src, re.S).group(1)
+    kinds = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    want = []
+    for arg in decl.split(","):
+        ctype = arg.strip().rsplit(" ", 1)[0].removeprefix("const ")
+        want.append(ctypes.c_void_p if ctype.endswith("*") else kinds[ctype])
+    assert want == list(tlb._ARGTYPES)

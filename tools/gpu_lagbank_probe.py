@@ -15,19 +15,27 @@ Builds variants of ``amaranth_twstft_tpu_torch/csrc/lagbank.cu`` with
 - ``one_flush``: the tensor-core chain is added to the IEEE fp32 sum once
   per block instead of once per stage (the accuracy fix removed);
 - ``cvt_split``: the tf32 split by ``cvt.rna.tf32.f32`` instead of integer
-  rounding of the bits (the same values).
+  rounding of the bits (the same values);
+- ``explicit``: the source as it is, launched on the explicit (K, NL)
+  layout;
+- ``explicit_no_products``: the explicit form's consumer warps wait for
+  each ring stage and release it without computing;
+- ``explicit_no_copies``: the explicit form's producer arrives on each
+  stage without copying either operand.
 
 The variants are made by exact text substitutions in the kernel source;
 after an edit to the lines they replace, the probe stops with "the kernel
 source no longer has ..." and its substitutions must be updated.
 
 On random data at the production group shape (G, P, K, NL) =
-(8, 24, 200 000, 57) it prints each variant's registers and spills, the
-float64 error of ``kernel``, ``one_flush``, ``cvt_split`` and the float32
-plain version (power error over the row maximum, phase error in cycles), the
-mean time per launch from CUDA events (variants in turns, forward then
-backward), the device time of each CUDA kernel from ``torch.profiler``,
-and the card's name and power limit.  Exits 1 without a card.
+(8, 24, 200 000, 57) for the window variants, and at the host receiver's
+(2, 24, 200 000) x (200 000, 57) for the explicit ones, it prints each
+variant's registers and spills, the float64 error of ``kernel``,
+``one_flush``, ``cvt_split``, ``explicit`` and the float32 plain versions
+(power error over the row maximum, phase error in cycles), the mean time
+per launch from CUDA events (variants in turns, forward then backward),
+the device time of each CUDA kernel from ``torch.profiler``, and the
+card's name and power limit.  Exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 G, P, K, NLAG = 8, 24, 200_000, 28
+NL_EXPLICIT = 57  # the host receiver's lags
 
 _CONSUME = """      if (lim >= kKPart) {
         consume_part<false>(acc, st, wv, tq, lim);
@@ -62,6 +71,12 @@ _FLUSH = """#pragma unroll
           }
 """
 _LOOP_END = "    }\n  }\n  __syncthreads();"
+_X_CONSUME = """      if (lim >= kXPart) {
+        consume_explicit<false>(acc, st, wt, wn, tq, lim);
+      } else if (lim > 0) {
+        consume_explicit<true>(acc, st, wt, wn, tq, lim);
+      }
+"""
 _INT_SPLIT = """  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;
 """
@@ -81,12 +96,18 @@ def variants(src: str) -> dict[str, str]:
     no_copies = _sub(src, "if (lane == 0) mbar_arrive_expect_tx(&full[s], row_bytes * rows);",
                      "if (lane == 0) mbar_arrive(&full[s]);")
     no_copies = _sub(no_copies, "        bulk_g2s(dst", "        if (false) bulk_g2s(dst")
+    x_no_copies = _sub(src, "mbar_arrive_expect_tx(&full[s], x_bytes * rows + w_bulk);",
+                       "mbar_arrive(&full[s]);")
+    for dst in ("wdst", "xdst"):
+        x_no_copies = _sub(x_no_copies, f"bulk_g2s({dst}", f"if (false) bulk_g2s({dst}")
     return {
         "kernel": src,
         "no_products": _sub(src, _CONSUME, ""),
         "no_copies": no_copies,
         "one_flush": _sub(src, _FLUSH + _LOOP_END, "    }\n" + _FLUSH + "  }\n  __syncthreads();"),
         "cvt_split": _sub(src, _INT_SPLIT, _CVT_SPLIT),
+        "explicit_no_products": _sub(src, _X_CONSUME, ""),
+        "explicit_no_copies": x_no_copies,
     }
 
 
@@ -105,10 +126,11 @@ def build(srcs: dict[str, str], out_dir: str) -> dict:
         jobs[name] = (cu, os.path.join(out_dir, f"lib{name}.so"))
     fns = {}
     for name, out in cuda_build.compile_all(jobs).items():
-        at = out.find("lagbank_window_kernel")
-        report = [ln.strip() for ln in out[at:].splitlines()[1:4]
-                  if "spill" in ln or "registers" in ln]
-        print(f"{name}: {' | '.join(report)}", flush=True)
+        for kern in ("lagbank_window_kernel", "lagbank_explicit_kernel"):
+            at = out.find(kern)
+            report = [ln.strip() for ln in out[at:].splitlines()[1:4]
+                      if "spill" in ln or "registers" in ln]
+            print(f"{name}, {kern}: {' | '.join(report)}", flush=True)
         fn = ctypes.CDLL(jobs[name][1]).lagbank_launch
         fn.argtypes = lagbank._ARGTYPES
         fn.restype = ctypes.c_int
@@ -127,10 +149,31 @@ def launch(fn, obs, wav_ext):
     outs = [torch.empty(g, p, nl, device=obs.device) for _ in range(4)]
     err = fn(obs.data_ptr(), 2 * p * k, p * k, k, wav_ext.data_ptr(), e, 1, -1,
              2 * NLAG, e, g, p, k, nl, K_BLOCK, 0.5, part.data_ptr(),
-             *(o.data_ptr() for o in outs), torch.cuda.current_stream().cuda_stream)
+             *(o.data_ptr() for o in outs), obs.device.index,
+             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"launch failed (cudaError {err})")
     return outs
+
+
+def launch_explicit(fn, obs_ri, w):
+    """One launch of a variant's C entry on the explicit (K, NL) layout,
+    split as ``lag_bank_correlate`` splits it."""
+    from amaranth_twstft_tpu_torch.ops.lagbank import explicit_chunk
+
+    _, c, k = obs_ri.shape
+    nl = w.shape[1]
+    n_sm = torch.cuda.get_device_properties(obs_ri.device).multi_processor_count
+    chunk = explicit_chunk(1, k, n_sm)
+    part = torch.empty(-(-k // chunk) * 2 * c * nl, device=obs_ri.device)
+    outs = [torch.empty(1, c, nl, device=obs_ri.device) for _ in range(4)]
+    err = fn(obs_ri.data_ptr(), 0, c * k, k, w.data_ptr(), 0, nl, 1, 0, k * nl,
+             1, c, k, nl, chunk, 0.5,
+             part.data_ptr(), *(o.data_ptr() for o in outs), obs_ri.device.index,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch failed (cudaError {err})")
+    return [o[0] for o in outs]
 
 
 def main() -> int:
@@ -164,14 +207,29 @@ def main() -> int:
         print(f"{name} vs float64: {errors(launch(fns[name], obs, wav_ext), ref64)}")
     del ref64
 
-    names = list(fns)
+    # the explicit form at the host receiver's shape; `explicit` is the
+    # source as it is (the `kernel` build)
+    obs_ri = obs[0]
+    w = torch.randn(K, NL_EXPLICIT, generator=gen, device=dev)
+    ref64 = lagbank.lag_bank_plain(obs_ri.double(), w.double())
+    print(f"explicit form, float32 plain vs float64: "
+          f"{errors(lagbank.lag_bank_plain(obs_ri, w), ref64)}")
+    print(f"explicit vs float64: {errors(launch_explicit(fns['kernel'], obs_ri, w), ref64)}")
+    del ref64
+
+    runs = {name: (lambda f=fns[name]: launch(f, obs, wav_ext))
+            for name in fns if not name.startswith("explicit")}
+    runs["explicit"] = lambda: launch_explicit(fns["kernel"], obs_ri, w)
+    for name in ("explicit_no_products", "explicit_no_copies"):
+        runs[name] = lambda f=fns[name]: launch_explicit(f, obs_ri, w)
+    names = list(runs)
     for name in names + names[::-1]:
-        ms = cuda_ms(lambda: launch(fns[name], obs, wav_ext), 20)
+        ms = cuda_ms(runs[name], 20)
         print(f"{name}: {ms:.4f} ms per launch (CUDA events, 20 launches)", flush=True)
     for name in names:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
-                launch(fns[name], obs, wav_ext)
+                runs[name]()
             torch.cuda.synchronize()
         rows = [f"{(re.search(r'\w+_kernel', ev.key) or [ev.key[:40]])[0]} "
                 f"{ev.device_time_total / 10:.1f} us"
