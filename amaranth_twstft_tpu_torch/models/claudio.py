@@ -21,7 +21,8 @@ Behaviour (``acquisition/claudio_aligned_code_ranging_separate.m``):
 Two paths, picked by ``transfer``:
 
 - the **resident int8 path** (``"auto"`` on the card, ``"int8"`` on either
-  device): each raw 2-s block is quantized to int8 on the host and
+  device): each raw 2-s block is read by the native library
+  (``utils/io.read_raw16``), quantized to int8 on the host and
   uploaded once; a block step assembles carry + block into a float32
   device buffer, refreshes df on the raw block, gathers the windows and
   runs the packed ranging step, so a block costs one result fetch; slip

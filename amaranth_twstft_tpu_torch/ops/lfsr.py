@@ -7,9 +7,11 @@ reference gateware shifts the register right and inserts
 brute-forces the full period (``amaranth_twstft/common.py:32-57``,
 ``tools/mseq_calculator.c:9-38``).
 
-There is no native engine here: :func:`find_mseq_taps` is the NumPy
-lockstep search (about 9 s for 120 17-bit taps on one core).
-:func:`prn_chips_device` stands where the JAX package's ``lax.scan``
+:func:`is_mseq` and :func:`find_mseq_taps` walk the LFSR in the port's
+native engine (``native/mseq.cpp``), as the JAX package's do; the plain
+versions stay as :func:`_is_mseq_py` (the Python oracle) and
+:func:`_find_mseq_taps_np` (the NumPy lockstep search, about 9 s for 120
+17-bit taps on one core).  :func:`prn_chips_device` stands where the JAX package's ``lax.scan``
 generator ``prn_chips_jax`` stood: no ported path makes chips on the
 card, so it moves the NumPy chips there.
 """
@@ -22,6 +24,7 @@ import os
 import numpy as np
 import torch
 
+from amaranth_twstft_tpu_torch import native
 from amaranth_twstft_tpu_torch.utils.platform import resolve_device
 
 __all__ = [
@@ -121,10 +124,8 @@ def _parity64(x: np.ndarray) -> np.ndarray:
     return x & np.uint64(1)
 
 
-def is_mseq(bit_len: int, taps: int, seed: int = 1) -> bool:
-    """True iff ``taps`` generates a maximal-length sequence: after
-    2**bit_len - 2 steps the state has revisited neither the seed nor 0
-    (``amaranth_twstft/common.py:44-51``)."""
+def _is_mseq_py(bit_len: int, taps: int, seed: int = 1) -> bool:
+    """Pure-Python oracle (kept as the cross-check for the native engine)."""
     period = (1 << bit_len) - 1
     s = int(seed)
     for _ in range(period - 1):
@@ -135,16 +136,21 @@ def is_mseq(bit_len: int, taps: int, seed: int = 1) -> bool:
     return True
 
 
-def find_mseq_taps(
-    bit_len: int, limit: int = 10, seed: int = 1, chunk: int = 4096
-) -> list[int]:
-    """First ``limit`` odd tap masks generating m-sequences, ascending
-    (``m_seq_codes``, ``amaranth_twstft/common.py:32-57``).
+def is_mseq(bit_len: int, taps: int, seed: int = 1) -> bool:
+    """True iff ``taps`` generates a maximal-length sequence: after
+    2**bit_len - 2 steps the state has revisited neither the seed nor 0
+    (``amaranth_twstft/common.py:44-51``).  Walked by the native engine
+    (``native/mseq.cpp``); :func:`_is_mseq_py` is the plain version."""
+    return native.is_mseq(bit_len, taps, seed)
 
-    NumPy-batched search: ``chunk`` candidates step in lockstep; any whose
-    state revisits the seed or reaches zero before the full period is
-    dropped, and survivors are compacted as they die.
-    """
+
+def _find_mseq_taps_np(
+    bit_len: int, limit: int, seed: int = 1, chunk: int = 4096
+) -> list[int]:
+    """NumPy-batched ascending search: ``chunk`` candidates step in
+    lockstep; any whose state revisits the seed or reaches zero before
+    the full period is dropped, and survivors are compacted as they
+    die."""
     period = (1 << bit_len) - 1
     msb = np.uint64(1) << np.uint64(bit_len - 1)
     seed64 = np.uint64(seed)
@@ -169,6 +175,14 @@ def find_mseq_taps(
         if len(found) >= limit:
             break
     return found[:limit]
+
+
+def find_mseq_taps(bit_len: int, limit: int = 10) -> list[int]:
+    """First ``limit`` odd tap masks generating m-sequences, ascending
+    (``m_seq_codes``, ``amaranth_twstft/common.py:32-57``), searched by
+    the native engine (``tools/mseq_calculator.c:31-38`` semantics);
+    :func:`_find_mseq_taps_np` is the plain version."""
+    return native.find_mseq(bit_len, limit)
 
 
 # ----------------------------------------------------------------------

@@ -6,8 +6,9 @@ The port's counterpart of the JAX package's
 (``pipeline.py:24-387``).  On the card the two-deep software pipeline is:
 
 - a reader thread fills **pinned** host batch buffers straight from the
-  sc16 memmap in the run's transfer format (raw int16 by default, int8
-  under a loose parity budget, float32 on request); a buffer is refilled
+  sc16 file in the run's transfer format (raw int16 by default, int8
+  under a loose parity budget, both through the native library's mmap
+  readers; float32 on request); a buffer is refilled
   only once the copy that read it has completed (its CUDA event);
 - each batch's host-to-device copy runs ``non_blocking`` on a separate
   copy stream, and a CUDA event orders it before the batch's step;

@@ -10,10 +10,13 @@ materializes on the host.
 The batch readers of the GoRanging pipeline take an optional ``out``
 array (for example a NumPy view of a pinned host buffer) and fill its
 first ``n`` epochs instead of allocating; the values are the same either
-way.  There is no native library here: ``read_sc16_epochs_q8`` is the
-chunked torch quantizer with the exact scale ``max|x|/127`` (the JAX
-package's native quantizer is bit-identical to that path) and
-``read_sc16_epochs_raw16`` is one NumPy copy out of the memmap.
+way.  The int8 and raw16 readers go through the port's native library
+(:mod:`amaranth_twstft_tpu_torch.native`), as the JAX package's do, and
+write straight into ``out``: ``read_sc16_epochs_q8`` calls its threaded
+quantizer unless ``TWSTFT_Q8_NATIVE=0`` selects the plain chunked torch
+quantizer (bit for bit the same), and ``TWSTFT_Q8_POW2=1`` switches both
+to the power-of-2 scale; ``read_sc16_epochs_raw16`` and ``read_raw16``
+are the native raw int16 copy.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import time
 
 import numpy as np
 import torch
+
+from amaranth_twstft_tpu_torch import native
 
 __all__ = [
     "open_sc16",
@@ -165,6 +170,52 @@ def read_sc16_epochs_packed(
     return out[:n], n
 
 
+def _flat_out(out: np.ndarray, n: int, L: int, width: int) -> np.ndarray:
+    """``out[:n]`` as the (n * L, width) view the native library writes
+    into (a reshape that would copy is refused, not written to)."""
+    if not out.flags.c_contiguous:
+        raise ValueError("out must be C-contiguous")
+    return out[:n].reshape(n * L, width)
+
+
+def _pow2_shift(smax: float) -> int:
+    """Smallest sh >= 0 with 127 << sh >= max|x| — integer-exact, the
+    native quantizer's formula (``ingest.cpp`` ``twstft_quantize_q8``)."""
+    sh = 0
+    while (127 << sh) < smax:
+        sh += 1
+    return sh
+
+
+def _quantize_q8_plain(raw: np.ndarray, pow2: bool, out: np.ndarray) -> float:
+    """The plain chunked torch quantizer (the native one's reference):
+    int16 ``raw`` -> int8 ``out`` (same size) in 2^21-element chunks, so
+    the intermediate stays in cache.  Exact scale ``max|x|/127`` and
+    ``q = round(x / scale)``, or with ``pow2`` the power-of-2 scale and
+    the integer rounding shift.  Returns the scale."""
+    chunk = 1 << 21
+    t = torch.from_numpy(raw).view(-1)
+    qt = torch.from_numpy(out).view(-1)
+    # max|x| via min/max: abs() of int16 -32768 wraps
+    smax = float(max(int(t.max()), -int(t.min())))
+    if pow2:
+        sh = _pow2_shift(smax)
+        half = 1 << (sh - 1) if sh > 0 else 0
+        for i in range(0, t.numel(), chunk):
+            # int32 before the rounding add: on int16, x + half wraps for
+            # near-full-scale samples and flips sign after the shift
+            blk = (t[i : i + chunk].to(torch.int32) + half) >> sh
+            qt[i : i + chunk] = blk.clamp_(-127, 127).to(torch.int8)
+        return float(1 << sh)
+    scale = max(smax, 1.0) / 127.0
+    inv = 1.0 / scale
+    for i in range(0, t.numel(), chunk):
+        blk = t[i : i + chunk].to(torch.float32)
+        blk.mul_(inv).round_().clamp_(-127, 127)
+        qt[i : i + chunk] = blk.to(torch.int8)
+    return scale
+
+
 def read_sc16_epochs_q8(
     path: str,
     start_sample: int,
@@ -179,32 +230,45 @@ def read_sc16_epochs_q8(
     channel ``select``) and the batch's scale.
 
     ``q = round(x / scale)`` with the exact ``scale = max|x| / 127``
-    (PARITY.md deviation 10), in 2^21-element float32 chunks so the
-    intermediate stays in cache.  Returns (q, n_read, scale)."""
+    (PARITY.md deviation 10); ``TWSTFT_Q8_POW2=1`` takes the power-of-2
+    scale with an integer rounding shift instead.  The native threaded
+    quantizer does page-in, min/max and quantize in one call and books
+    it under ``convert_s`` and ``native_q8_s`` (adding nothing to
+    ``disk_s``); ``TWSTFT_Q8_NATIVE=0`` runs the plain chunked torch
+    quantizer, bit for bit the same, with ``disk_s``/``convert_s`` split.
+    Returns (q, n_read, scale)."""
     mm = open_sc16(path, channels)
     n = _n_epochs(mm.shape[0], start_sample, n_epochs, samples_per_epoch)
     width = 2 if select is not None else 2 * channels
     if n == 0:
         return np.zeros((0, samples_per_epoch, width), np.int8), 0, 1.0
+    if out is None:
+        out = np.empty((n, samples_per_epoch, width), np.int8)
+    flat = _flat_out(out, n, samples_per_epoch, width)
+    pow2 = os.environ.get("TWSTFT_Q8_POW2") == "1"
+    n_frames = n * samples_per_epoch
+    if os.environ.get("TWSTFT_Q8_NATIVE", "1") != "0":
+        t0 = time.perf_counter()
+        _, got, scale = native.quantize_q8(
+            path, start_sample, n_frames, channels=channels,
+            select=-1 if select is None else select, pow2=pow2, out=flat)
+        if got != n_frames:
+            raise OSError(f"{path}: {got} of {n_frames} frames read (the "
+                          "file shrank during the read)")
+        if timers is not None:
+            # one call spans page-in and quantize: no disk_s split
+            dt = time.perf_counter() - t0
+            for k in ("convert_s", "native_q8_s"):
+                timers[k] = timers.get(k, 0.0) + dt
+            timers["bytes_read"] = timers.get("bytes_read", 0) + 2 * flat.size
+        return out[:n], n, scale
     t0 = time.perf_counter()
-    sl = mm[start_sample : start_sample + n * samples_per_epoch]
+    sl = mm[start_sample : start_sample + n_frames]
     if select is not None:
         sl = sl[:, 2 * select : 2 * select + 2]
     raw = np.array(sl)  # a writable copy out of the read-only memmap
     t1 = time.perf_counter()
-    chunk = 1 << 21
-    t = torch.from_numpy(raw).view(-1)
-    # max|x| via min/max: abs() of int16 -32768 wraps
-    smax = float(max(int(t.max()), -int(t.min())))
-    scale = max(smax, 1.0) / 127.0
-    inv = 1.0 / scale
-    if out is None:
-        out = np.empty((n, samples_per_epoch, width), np.int8)
-    qt = torch.from_numpy(out[:n].reshape(-1))
-    for i in range(0, t.numel(), chunk):
-        blk = t[i : i + chunk].to(torch.float32)
-        blk.mul_(inv).round_().clamp_(-127, 127)
-        qt[i : i + chunk] = blk.to(torch.int8)
+    scale = _quantize_q8_plain(raw, pow2, flat)
     _account(timers, t1 - t0, time.perf_counter() - t1, raw.nbytes)
     return out[:n], n, scale
 
@@ -220,22 +284,24 @@ def read_sc16_epochs_raw16(
     out: np.ndarray | None = None,
 ):
     """Raw int16 epochs: (n, L, 2*channels) (or (n, L, 2) of channel
-    ``select``) — the sc16 wire format shipped as is.  One copy out of
-    the memmap and no conversion; the ranging step casts to float32,
-    which is exact for every int16.  Returns (a, n_read)."""
-    mm = open_sc16(path, channels)
-    n = _n_epochs(mm.shape[0], start_sample, n_epochs, samples_per_epoch)
+    ``select``) — the sc16 wire format shipped as is.  One threaded
+    native copy out of the mmap and no conversion; the ranging step
+    casts to float32, which is exact for every int16.  Returns (a,
+    n_read)."""
+    total = n_samples_sc16(path, channels)
+    n = _n_epochs(total, start_sample, n_epochs, samples_per_epoch)
     width = 2 if select is not None else 2 * channels
     if n == 0:
         return np.zeros((0, samples_per_epoch, width), np.int16), 0
-    t0 = time.perf_counter()
-    sl = mm[start_sample : start_sample + n * samples_per_epoch]
-    if select is not None:
-        sl = sl[:, 2 * select : 2 * select + 2]
     if out is None:
         out = np.empty((n, samples_per_epoch, width), np.int16)
-    np.copyto(out[:n].reshape(n * samples_per_epoch, width), sl)
-    _account(timers, time.perf_counter() - t0, 0.0, out[:n].nbytes)
+    t0 = time.perf_counter()
+    _, got = native.read_raw16(
+        path, start_sample, n * samples_per_epoch, channels=channels,
+        select=-1 if select is None else select,
+        out=_flat_out(out, n, samples_per_epoch, width))
+    n = got // samples_per_epoch
+    _account(timers, time.perf_counter() - t0, 0.0, 2 * n * samples_per_epoch * width)
     return out[:n], n
 
 
@@ -246,18 +312,14 @@ def read_raw16(
     out: np.ndarray | None = None,
 ):
     """Raw int16 frame-range copy of a single-channel sc16 file: frames
-    ``[start_frame, start_frame + n_frames)`` as (n, 2) int16 (the JAX
-    package's ``native.read_raw16`` memmap branch,
-    ``native/__init__.py:293-330``).  With ``out`` (shape (>= n_frames,
-    2), for example a NumPy view of a pinned buffer) the frames land
-    there.  Returns (a, n) with ``a`` the first ``n`` rows; a short read
-    at the end of the file returns fewer rows."""
-    mm = open_sc16(path, 1)
-    n = min(n_frames, max(0, mm.shape[0] - start_frame))
-    if out is None:
-        out = np.empty((n, 2), np.int16)
-    np.copyto(out[:n], mm[start_frame : start_frame + n])
-    return out[:n], n
+    ``[start_frame, start_frame + n_frames)`` as (n, 2) int16, through
+    the native library (``native.read_raw16``, as the JAX package's
+    claudio reads).  With ``out`` (C-contiguous, shape (>= n_frames, 2),
+    for example a NumPy view of a pinned buffer) the frames land there.
+    Returns (a, n) with ``a`` the first ``n`` rows; a short read at the
+    end of the file returns fewer rows."""
+    return native.read_raw16(path, start_frame, n_frames, channels=1,
+                             out=None if out is None else out[:n_frames])
 
 
 def decimate_sc16(

@@ -125,6 +125,34 @@ capture):
 24. runs ``goranging --fast --profile DIR`` once and checks that the
     Chrome trace holds CUDA kernel events.
 
+The native host library and the last modules (after the bank's build,
+and after the GoRanging slice on its capture):
+
+N1. builds ``native/*.cpp`` with ``g++`` ahead of every timed phase
+    (printing its seconds and flags); on the GoRanging capture (800 MB)
+    holds ``native.quantize_q8`` (exact and power-of-2 scale) against the
+    plain torch quantizer (bytes and scale equal) and ``native.read_raw16``
+    against the memmap copy (bytes equal), and prints each path's MB/s,
+    the thread count and ``os.cpu_count()``;
+N2. runs ``goranging --fast --parity-ns 0.1`` (the native int8 reader)
+    and the same under ``TWSTFT_Q8_NATIVE=0``: epochs, df and ``.mat``
+    fields equal bit for bit, each channel's median delay within 0.01
+    sample of the truth; prints both runs' and the int16 runs' reader
+    times and, after the two-way phase, claudio's ``read_s`` (its raw
+    blocks come through the native library); ``prn --search 120`` at 17
+    bits equals the plain NumPy search (both timed);
+M.  holds ``ops/mxufft`` ``fft_factored`` and ``ifft_factored`` at
+    (50, 200 000) and (1, 10^7) complex64 within 5e-5 of the maximum of
+    the float64 ``torch.fft`` truth, and times them and ``torch.fft`` at
+    the same shape with CUDA events;
+S.  runs the correlator studies at production geometry on the card
+    (``f16_ingest_error_study()`` with its percentile table,
+    ``timing_interpolation_study`` on the 100 000-chip 17-bit code,
+    ``qpsk_vs_bpsk_study(SignalConfig())``, ``code_length_study`` over
+    the seven campaign codes up to 2.5 Mchip, ``gotracking_slope_study()``),
+    prints each one's wall time and peak device memory and asserts the
+    conclusion its JAX test asserts.
+
 It prints the card's name and power limit (``nvidia-smi``), one
 ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -195,6 +223,9 @@ HOST_CPU_SECONDS = 3  # the card-vs-CPU prefix
 HOST_CPU_FC_HZ = 1e-3
 HOST_CPU_GD_NS = 0.01
 MON_SECONDS = 10  # appended to the tailed file, one second per second
+# the staged matmul FFT's shapes (a GoRanging batch of 50 codes, one 2-s
+# claudio block) and the CUDA-event repetitions of each
+MX_SHAPES = (((50, 200_000), 10), ((1, 10**7), 5))
 
 
 def log(msg: str) -> None:
@@ -522,10 +553,11 @@ def synthesize_ranging(dev, seed: int, code_path: str, path: str) -> dict:
     return {"delay": delays, "doppler": dops}
 
 
-def run_goranging_cli(cap: str, code: str, out_mat: str, dev, mode: str = "--fast"):
+def run_goranging_cli(cap: str, code: str, out_mat: str, dev, mode: str = "--fast",
+                      extra: tuple = ()):
     """The main path: ``twstft-torch goranging --fast`` (or ``mode``
-    ``--sharded``) in-process.  Returns the pipeline's output dict and the
-    call's wall time."""
+    ``--sharded``) in-process, with ``extra`` arguments.  Returns the
+    pipeline's output dict and the call's wall time."""
     from amaranth_twstft_tpu_torch import cli, pipeline
 
     kept = {}
@@ -544,7 +576,7 @@ def run_goranging_cli(cap: str, code: str, out_mat: str, dev, mode: str = "--fas
         with contextlib.redirect_stdout(io.StringIO()), \
                 contextlib.redirect_stderr(io.StringIO()):
             rc = cli.main(["goranging", cap, code, mode, "--device", str(dev),
-                           "--batch-epochs", str(GR_BATCH)])
+                           "--batch-epochs", str(GR_BATCH), *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -791,6 +823,7 @@ def goranging_phase(work: str, dev, seed: int) -> tuple[tuple, dict]:
         "iq_msps": msps, "wall_s": wall, "cold_wall_s": runs[0][1],
         "timing": out["timing"], "delay_err_samples": [e[0] for e in errs],
         "df_err_hz": [e[1] for e in errs], "int8_max_delay_diff_ps": ps,
+        "n_epochs": len(out["ch1"]["indice"]),
         "vs_process_file_max_corr": worst_pf, "vs_cpu_max_corr": worst_cpu,
         "busy_ms": busy, "traced_wall_s": traced_wall,
         "replica_s": t_rep, "bind_s": t_bind,
@@ -1659,18 +1692,18 @@ def bank_on_mesh(work: str, truths: dict, cap: str, dev, mesh, ref_reports: list
 
 
 def mat_fields_equal(a: str, b: str) -> int:
-    """Raise unless two .mat files hold the same top-level arrays; return
-    how many were compared."""
-    from amaranth_twstft_tpu_torch.utils.matio import load_result
+    """Raise unless two .mat files hold the same arrays, field for field
+    and bit for bit; return how many were compared."""
+    import scipy.io as sio
 
-    ma, mb = load_result(a), load_result(b)
-    n = 0
-    for k, v in mb.items():
-        if isinstance(v, np.ndarray):
-            if not np.array_equal(ma[k], v):
-                raise RuntimeError(f"{a} and {b} differ in {k}")
-            n += 1
-    return n
+    ma, mb = sio.loadmat(a), sio.loadmat(b)
+    keys = sorted(k for k in mb if not k.startswith("__"))
+    if keys != sorted(k for k in ma if not k.startswith("__")):
+        raise RuntimeError(f"{a} and {b} hold different fields")
+    for k in keys:
+        if ma[k].dtype != mb[k].dtype or not np.array_equal(ma[k], mb[k]):
+            raise RuntimeError(f"{a} and {b} differ in {k}")
+    return len(keys)
 
 
 def sharded_phase(work: str, cap: str, code: str, truth: dict, dev, mesh) -> dict:
@@ -1845,6 +1878,211 @@ def sharded_phase(work: str, cap: str, code: str, truth: dict, dev, mesh) -> dic
     return out
 
 
+def native_phase(work: str, cap: str, code: str, truth: dict, dev, gr: dict) -> dict:
+    """Steps N1-N2 on the GoRanging capture (``gr``: the numbers of the
+    int16 runs); returns the numbers of the ``{"native": ...}`` line."""
+    from amaranth_twstft_tpu_torch import cli, native
+    from amaranth_twstft_tpu_torch.ops import lfsr
+    from amaranth_twstft_tpu_torch.utils import io as sc16
+
+    # -- N1. the library against the plain versions, whole capture ---------
+    n_frames = sc16.n_samples_sc16(cap, channels=2)
+    mb = os.path.getsize(cap) / 1e6
+    threads = min(os.cpu_count() or 2, 8)
+    t0 = time.perf_counter()
+    raw = np.array(sc16.open_sc16(cap, 2))
+    t_mm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a, n = native.read_raw16(cap, 0, n_frames, channels=2)
+    t_raw = time.perf_counter() - t0
+    if n != n_frames or not np.array_equal(a, raw):
+        raise RuntimeError("native read_raw16 differs from the memmap copy")
+    del a
+    rates = {"read_raw16_mbps": mb / t_raw, "memmap_copy_mbps": mb / t_mm}
+    for pow2 in (False, True):
+        tag = "pow2" if pow2 else "exact"
+        t0 = time.perf_counter()
+        q, n, scale = native.quantize_q8(cap, 0, n_frames, channels=2, pow2=pow2)
+        t_nat = time.perf_counter() - t0
+        plain = np.empty_like(q)
+        t0 = time.perf_counter()
+        s_plain = sc16._quantize_q8_plain(raw, pow2, plain)
+        t_plain = time.perf_counter() - t0
+        if n != n_frames or scale != s_plain or not np.array_equal(q, plain):
+            raise RuntimeError(f"native quantize_q8 ({tag}) differs from the plain "
+                               f"quantizer (scale {scale} vs {s_plain})")
+        rates[f"quantize_q8_{tag}_mbps"] = mb / t_nat
+        rates[f"plain_q8_{tag}_mbps"] = mb / (t_plain + t_mm)
+        log(f"N1 quantize_q8 {tag}: scale {scale!r}, bytes and scale equal to the plain "
+            f"torch quantizer; native {mb / t_nat:.0f} MB/s ({t_nat:.3f} s), plain "
+            f"{mb / (t_plain + t_mm):.0f} MB/s (memmap copy {t_mm:.3f} s + quantize "
+            f"{t_plain:.3f} s)")
+        del q, plain
+    del raw
+    log(f"N1 read_raw16: equal to the memmap copy; native {rates['read_raw16_mbps']:.0f} "
+        f"MB/s ({t_raw:.3f} s), memmap copy {rates['memmap_copy_mbps']:.0f} MB/s, over "
+        f"{mb:.0f} MB; {threads} threads, os.cpu_count() {os.cpu_count()}")
+
+    # -- N2. goranging --fast --parity-ns 0.1, native and plain quantizer ---
+    runs = {}
+    for env in ("1", "0"):
+        os.environ["TWSTFT_Q8_NATIVE"] = env
+        try:
+            runs[env] = run_goranging_cli(
+                cap, code, os.path.join(work, f"q8native{env}C.mat"), dev,
+                extra=("--parity-ns", "0.1"))
+        finally:
+            os.environ.pop("TWSTFT_Q8_NATIVE")
+    (o_nat, w_nat), (o_plain, w_plain) = runs["1"], runs["0"]
+    if "native_q8_s" not in o_nat["timing"] or "native_q8_s" in o_plain["timing"]:
+        raise RuntimeError("the int8 runs did not take the quantizers asked for")
+    for ch in ("ch1", "ch2"):
+        for k in o_plain[ch]:
+            if not np.array_equal(o_nat[ch][k], o_plain[ch][k]):
+                raise RuntimeError(f"native vs plain int8 run differ ({ch} {k})")
+    if o_nat["df"] != o_plain["df"]:
+        raise RuntimeError("native vs plain int8 run: df differs")
+    n_fields = mat_fields_equal(o_nat["mat_path"], o_plain["mat_path"])
+    errs = []
+    for c, ch in enumerate(("ch1", "ch2")):
+        dl = delays_samples(o_nat[ch])
+        errs.append(float(np.median(dl) - truth["delay"][c]))
+        if len(dl) != gr["n_epochs"] or abs(errs[-1]) > GR_DELAY_TOL:
+            raise RuntimeError(f"int8 run: {ch} {len(dl)} epochs, delay err {errs[-1]}")
+    tn, tp, t16 = o_nat["timing"], o_plain["timing"], gr["timing"]
+    log(f"N2 goranging --fast --parity-ns 0.1: native and TWSTFT_Q8_NATIVE=0 runs "
+        f"equal in every epoch field, df and {n_fields} .mat fields; median delay "
+        f"err {errs} sample; wall {w_nat:.3f} s native, {w_plain:.3f} s plain")
+    log(f"  int8 timing native: disk_s {tn['disk_s']}, convert_s {tn['convert_s']}, "
+        f"native_q8_s {tn['native_q8_s']}, epoch_loop_s {tn['epoch_loop_s']}; plain: "
+        f"disk_s {tp['disk_s']}, convert_s {tp['convert_s']}, epoch_loop_s "
+        f"{tp['epoch_loop_s']}; int16 run (native read_raw16): disk_s {t16['disk_s']}, "
+        f"convert_s {t16['convert_s']}, epoch_loop_s {t16['epoch_loop_s']}")
+
+    # prn --search at the production 17-bit length, engine vs plain search
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli.main(["prn", "--bitlen", str(BIT_LEN), "--search", str(2 * N_PER_INPUT)])
+    t_search = time.perf_counter() - t0
+    found = [int(x) for x in stdout.getvalue().split()]
+    t0 = time.perf_counter()
+    plain_taps = lfsr._find_mseq_taps_np(BIT_LEN, 2 * N_PER_INPUT)
+    t_plain_search = time.perf_counter() - t0
+    if rc != 0 or found != plain_taps:
+        raise RuntimeError("prn --search differs from the plain search")
+    log(f"N2 prn --search {2 * N_PER_INPUT} at {BIT_LEN} bits: the plain search's taps; "
+        f"{t_search:.3f} s (native engine), plain {t_plain_search:.3f} s")
+    return {
+        **rates, "threads": threads, "cpu_count": os.cpu_count(), "capture_mb": mb,
+        "q8_native_wall_s": w_nat, "q8_plain_wall_s": w_plain,
+        "q8_delay_err_samples": errs, "q8_timing_native": tn, "q8_timing_plain": tp,
+        "int16_disk_s": t16["disk_s"], "int16_convert_s": t16["convert_s"],
+        "prn_search_s": t_search, "prn_search_plain_s": t_plain_search,
+    }
+
+
+def mxufft_phase(dev, seed: int) -> dict:
+    """Step M: the staged matmul FFT against the float64 truth and cuFFT."""
+    from amaranth_twstft_tpu_torch.ops import mxufft
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for shape, reps in MX_SHAPES:
+        x = torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev)
+        x64 = x.to(torch.complex128)
+        row = {"factors": list(mxufft.good_factors(shape[-1]))}
+        for name, fn, lib in (("fft", mxufft.fft_factored, torch.fft.fft),
+                              ("ifft", mxufft.ifft_factored, torch.fft.ifft)):
+            y = fn(x)
+            truth = lib(x64, dim=-1)
+            peak = truth.abs().max()
+            err = float((y.to(torch.complex128) - truth).abs().max() / peak)
+            lib_err = float((lib(x, dim=-1).to(torch.complex128) - truth).abs().max() / peak)
+            ms = cuda_ms(lambda: fn(x), reps)
+            lib_ms = cuda_ms(lambda: lib(x, dim=-1), reps)
+            log(f"M {name}_factored {tuple(shape)} complex64 (stages {row['factors']}): "
+                f"max err / max {err:.3e} (cuFFT {lib_err:.3e}); {ms:.4f} ms, "
+                f"torch.fft.{name} {lib_ms:.4f} ms ({ms / lib_ms:.1f}x)")
+            if y.dtype != torch.complex64 or not err < 5e-5:
+                raise RuntimeError(f"{name}_factored {shape}: {y.dtype}, err {err}")
+            row[name] = {"max_err": err, "cufft_max_err": lib_err, "ms": ms,
+                         "cufft_ms": lib_ms}
+        out["x".join(map(str, shape))] = row
+        del x, x64, y, truth
+    return out
+
+
+def studies_phase(dev) -> dict:
+    """Step S: the correlator studies at production geometry on the card,
+    each with the conclusion its JAX test asserts."""
+    from amaranth_twstft_tpu_torch import studies
+    from amaranth_twstft_tpu_torch.config import SignalConfig
+
+    torch.cuda.empty_cache()
+    walls, peaks = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated(dev) / 1e9
+        return r
+
+    f16 = timed("f16_ingest_error_study", lambda: studies.f16_ingest_error_study(device=dev))
+    for chain in ("quant", "f32", "int8"):
+        log(f"S f16_ingest_error_study {chain}: " + ", ".join(
+            f"{k} {v!r}" for k, v in f16[chain].items()))
+    if not (f16["quant"]["max_ns"] < 0.01 and f16["f32"]["max_ns"] < 0.01
+            and f16["int8"]["max_ns"] < 0.1 and f16["f32"]["n"] == 1024):
+        raise RuntimeError(f"f16_ingest_error_study: {f16}")
+    ti = timed("timing_interpolation_study", lambda: studies.timing_interpolation_study(
+        code_len=CODE_LEN, bit_len=BIT_LEN, taps=9, device=dev))
+    s0, s1, s2 = ti["std_samples"]
+    log(f"S timing_interpolation_study (100 000 chips): std {ti['std_samples']} sample "
+        f"at nint 0/1/2, mean err {ti['mean_err_samples']}")
+    if not (s0 > 5.0 * s1 and s2 < 2.0 * s1 and s1 < 0.05):
+        raise RuntimeError(f"timing_interpolation_study: {ti}")
+    qp = timed("qpsk_vs_bpsk_study", lambda: studies.qpsk_vs_bpsk_study(
+        SignalConfig(), device=dev))
+    log(f"S qpsk_vs_bpsk_study (production signal): {qp}")
+    if not (abs(qp["bpsk_mean"] - 137.25) < 0.1 and abs(qp["qpsk_mean"] - 137.25) < 0.2
+            and qp["qpsk_std_samples"] > 0.8 * qp["bpsk_std_samples"]):
+        raise RuntimeError(f"qpsk_vs_bpsk_study: {qp}")
+    cl = timed("code_length_study", lambda: studies.code_length_study(
+        configs=studies.CODE_LENGTH_CAMPAIGN, device=dev))
+    std = cl["std_samples"]
+    # the matched-filter law: std[0]/std[i] within 2x of sqrt(len_i/len_0)
+    # (tests/test_studies.py's 2 < ratio < 8 at 16x length)
+    law = (std[0] / std) / np.sqrt(cl["code_len"] / cl["code_len"][0])
+    log(f"S code_length_study (the seven campaign codes, 5 kchip to 2.5 Mchip): "
+        f"std {std} sample, mean {cl['mean_samples']}; std ratio over sqrt(length "
+        f"ratio) {law}")
+    if not (np.all(np.abs(cl["mean_samples"] - 123.0) < 0.5)
+            and np.all(np.diff(std) < 0) and np.all((law > 0.5) & (law < 2.0))):
+        raise RuntimeError(f"code_length_study: {cl}")
+    gt = timed("gotracking_slope_study", lambda: studies.gotracking_slope_study(device=dev))
+    floor = gt["noise_floor_s_per_s"]
+    log(f"S gotracking_slope_study: slope mean {gt['slope_mean']!r} s/s (true "
+        f"{gt['slope_true']!r}), 1-s floor {floor!r}, production extrapolation "
+        f"{gt['floor_production_extrapolated']!r}")
+    if not (floor < 1e-12 and gt["floor_production_extrapolated"] < 3e-13
+            and abs(gt["slope_mean"] - gt["slope_true"])
+            < 3 * floor / np.sqrt(len(gt["slopes_s_per_s"]))):
+        raise RuntimeError(f"gotracking_slope_study: {gt}")
+    for k in walls:
+        log(f"S {k}: wall {walls[k]:.3f} s, peak device memory {peaks[k]:.2f} GB")
+    return {
+        "wall_s": walls, "peak_gb": peaks, "f16": f16,
+        "timing_std_samples": ti["std_samples"].tolist(), "qpsk": qp,
+        "code_length_std_samples": std.tolist(),
+        "gotracking_floor_s_per_s": floor,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -1856,6 +2094,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     os.environ.setdefault("TWSTFT_BANK_CACHE", "")  # no ~300 MB cache entry
 
+    from amaranth_twstft_tpu_torch import native
     from amaranth_twstft_tpu_torch.ops import lagbank
     from amaranth_twstft_tpu_torch.ops.lfsr import find_mseq_taps
     from amaranth_twstft_tpu_torch.utils import cuda_build
@@ -1869,6 +2108,11 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # the native host library, ahead of every timed phase
+    nat_build = native.build(force=True)
+    native.load()
+    log(f"build: native host library (g++ {nat_build['flags']}) in "
+        f"{nat_build['seconds']:.1f} s")
 
     # -- 2. capture -------------------------------------------------------
     work = os.path.join(cuda_build.BUILD_DIR, "smoke")
@@ -1995,6 +2239,13 @@ def main() -> int:
     (gr_cap, gr_code, gr_truth), gr = goranging_phase(work, dev, args.seed)
     log(f"goranging phase: {time.perf_counter() - t0:.1f} s")
 
+    # -- N1-N2. the native library and the paths routed through it ---------
+    t0 = time.perf_counter()
+    nat = native_phase(work, gr_cap, gr_code, gr_truth, dev, gr)
+    nat.update(build_s=nat_build["seconds"], build_flags=nat_build["flags"])
+    t_native = time.perf_counter() - t0
+    log(f"native phase: {t_native:.1f} s")
+
     # -- 21-24. monitor --serve on a growing copy, goranging --profile ------
     t0 = time.perf_counter()
     mon = monitor_phase(work, gr_cap, gr_code, gr_truth, dev)
@@ -2013,6 +2264,22 @@ def main() -> int:
     t0 = time.perf_counter()
     tw = twoway_phase(work, dev, args.seed, next(t for t in taps if t != 9))
     log(f"two-way phase: {time.perf_counter() - t0:.1f} s")
+    nat["claudio_read_s"] = {k: f["timing"]["read_s"] for k, f in tw["files"].items()}
+    log(f"N2 claudio raw reads through the native library: read_s "
+        f"{nat['claudio_read_s']}")
+
+    # -- M. the staged matmul FFT against cuFFT ------------------------------
+    t0 = time.perf_counter()
+    mx = mxufft_phase(dev, args.seed)
+    t_mx = time.perf_counter() - t0
+    log(f"mxufft phase: {t_mx:.1f} s")
+
+    # -- S. the studies at production geometry -------------------------------
+    t0 = time.perf_counter()
+    st = studies_phase(dev)
+    t_st = time.perf_counter() - t0
+    log(f"studies phase: {t_st:.1f} s; native, mxufft and studies phases together "
+        f"{t_native + t_mx + t_st:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
@@ -2021,6 +2288,7 @@ def main() -> int:
     log(json.dumps({"host": host["host"]}))
     log(json.dumps({"monitor": mon, "profile": prof}))
     log(json.dumps({"sharded": sharded}))
+    log(json.dumps({"native": nat, "mxufft": mx, "studies": st}))
     log(json.dumps({"kernels": [{
         "name": "lagbank",
         "route": "cuda",

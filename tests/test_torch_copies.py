@@ -827,3 +827,20 @@ def test_carrier_smooth_delays_tracks_wander_like_jax():
     assert np.std(sm - tau_ns) < 0.15 * np.std(code_ns - tau_ns)
     assert np.std(sm - tau_ns) < 0.01
     np.testing.assert_allclose(sm, ref, rtol=0, atol=1e-9)
+
+
+def test_package_exports_the_configs_like_jax():
+    """The package root exports the JAX package's four configuration
+    classes (its ``__init__.py`` imports), with the same field names."""
+    import dataclasses
+
+    import amaranth_twstft_tpu as jpkg
+    import amaranth_twstft_tpu_torch as tpkg
+
+    names = ["SignalConfig", "ProcessingConfig", "StationConfig", "MeshConfig"]
+    assert sorted(tpkg.__all__) == sorted(names)
+    for name in names:
+        cls = getattr(tpkg, name)
+        assert cls is getattr(t_config, name)
+        assert ([f.name for f in dataclasses.fields(cls)]
+                == [f.name for f in dataclasses.fields(getattr(jpkg, name))])

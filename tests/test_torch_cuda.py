@@ -664,3 +664,42 @@ def test_polyphase_decimate_on_card_matches_cpu(cuda):
         card = polyphase_decimate(xt.to(cuda), h, 25).cpu()
         assert card.shape == cpu.shape == (3, 800) and card.dtype == dt
         assert float((card - cpu).abs().max()) <= tol * float(cpu.abs().max())
+
+
+def test_mxufft_on_card_matches_cufft(cuda):
+    """The staged matmul FFT on the card: complex64 within 5e-5 of the
+    maximum of the float64 cuFFT truth, complex128 within 1e-10."""
+    from amaranth_twstft_tpu_torch.ops import mxufft
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((4, 200_000), dtype=torch.complex64, generator=gen, device=cuda)
+    x64 = x.to(torch.complex128)
+    for fn, lib in ((mxufft.fft_factored, torch.fft.fft),
+                    (mxufft.ifft_factored, torch.fft.ifft)):
+        truth = lib(x64, dim=-1)
+        peak = truth.abs().max()
+        y = fn(x)
+        assert y.dtype == torch.complex64 and y.device == x.device
+        assert float((y.to(torch.complex128) - truth).abs().max() / peak) < 5e-5
+        y64 = fn(x64[:, :6000])
+        t64 = lib(x64[:, :6000], dim=-1)
+        assert float((y64 - t64).abs().max() / t64.abs().max()) < 1e-10
+
+
+def test_studies_on_card_match_cpu(cuda):
+    """A small correlator study and the f16-ingest chains on the card
+    against the CPU: delays within 1e-6 sample (complex128), the float64
+    chain's percentiles within 1e-6 ns, the conclusions on both."""
+    from amaranth_twstft_tpu_torch import studies
+
+    card = studies.code_length_study(device=cuda)
+    cpu = studies.code_length_study(device="cpu")
+    np.testing.assert_allclose(card["mean_samples"], cpu["mean_samples"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(card["std_samples"], cpu["std_samples"], rtol=1e-6)
+    kw = dict(n_epochs=64, chunk=32)
+    f_card = studies.f16_ingest_error_study(device=cuda, **kw)
+    f_cpu = studies.f16_ingest_error_study(device="cpu", **kw)
+    for k in ("p50_ns", "p90_ns", "p99_ns", "max_ns"):
+        assert abs(f_card["quant"][k] - f_cpu["quant"][k]) < 1e-6
+    for res in (f_card, f_cpu):
+        assert res["f32"]["max_ns"] < 0.01 and res["int8"]["max_ns"] < 0.1
