@@ -74,9 +74,6 @@ _NP_COMPLEX = {torch.complex64: np.complex64, torch.complex128: np.complex128}
 # block is due (the results do not depend on it)
 _PREFETCH = True
 
-# masked slip re-correlations per block (the JAX package's default)
-_MAX_SLIP_PASSES = 4
-
 
 def claudio_df_window(station: StationConfig, ranging: bool) -> tuple[float, float]:
     """Search window on the doubled-frequency axis: +/-8 kHz for the
@@ -374,6 +371,7 @@ def process_file(
     ranging: bool = True,
     out_dir: str | None = None,
     dtype=torch.complex128,
+    max_slip_passes: int = 4,
     verbose: bool = False,
     transfer: str = "auto",
     df_window_hz: tuple[float, float] | None = None,
@@ -385,7 +383,8 @@ def process_file(
     ``transfer``: ``"auto"`` takes the resident int8 path on the card and
     the per-call ``dtype`` path on the CPU; ``"int8"`` forces the resident
     path on either device; ``"f32"`` the per-call path through an
-    unpacked ranging step on float32 pairs.
+    unpacked ranging step on float32 pairs.  ``max_slip_passes`` bounds
+    the masked slip re-correlations of each block.
 
     Returns the result dict — ``found``, the per-code arrays, ``moved``,
     ``carry_trimmed``, ``mat_path`` and a ``timing`` dict of wall seconds
@@ -556,7 +555,7 @@ def process_file(
             res = corr(offsets)
             timing["block_step_ms"].append(1e3 * (time.perf_counter() - tb))
 
-        for _pass in range(_MAX_SLIP_PASSES):
+        for _pass in range(max_slip_passes):
             ind3 = np.asarray(res.indice, dtype=np.float64)
             indice_ni = ind3 / proc.interp_factor  # non-interp grid (0-based)
             snr_db = 10.0 * np.log10(np.maximum(

@@ -566,39 +566,50 @@ def process_directory(
     proc: ProcessingConfig | None = None,
     station: StationConfig | None = None,
     chain: str = "claudio",
+    pattern: str | None = None,
     remote: bool = False,
+    ranging: bool = True,
+    gzip_outputs: bool = True,
+    move_done: bool = True,
     device=None,
+    **chain_kwargs,
 ) -> BatchReport:
     """Process every unprocessed capture in ``datadir`` (goprocess.sh) on
     ``device`` (default ``cuda``; a missing card raises before any
     capture is touched).
 
     ``chain``: ``claudio`` (single-channel files ``*_{1,2}.bin``),
-    ``godual`` or ``goranging`` (dual-channel ``1*.bin``).  A capture
+    ``godual`` or ``goranging`` (dual-channel ``1*.bin``); ``pattern``
+    overrides that glob.  ``ranging`` goes to claudio only, and
+    ``chain_kwargs`` to every capture's ``process_file``.  A capture
     whose chain raises is recorded in ``failed`` and the batch goes on;
-    nothing is retried on another device.  Outputs are gzipped and inputs
-    moved to ``donetw/`` on success (``claudio_...separate.m:210-215``).
+    nothing is retried on another device.  On success the output is
+    gzipped (``gzip_outputs``) and the input moved to ``donetw/``
+    (``move_done``; ``claudio_...separate.m:210-215``).
     """
     dev = resolve_device(device)
     proc = proc or ProcessingConfig()
     station = station or StationConfig()
-    pattern = f"*_{station.remote_channel}.bin" if chain == "claudio" else "1*.bin"
+    if pattern is None:
+        pattern = (f"*_{station.remote_channel}.bin" if chain == "claudio"
+                   else "1*.bin")
     report = BatchReport([], [], [])
     for cap in sorted(glob.glob(os.path.join(datadir, pattern))):
         try:
             if chain == "claudio":
                 out = claudio.process_file(
                     cap, code_path, signal, proc, station,
-                    remote=remote, device=dev,
+                    remote=remote, ranging=ranging, device=dev, **chain_kwargs,
                 )
             elif chain == "godual":
                 out = godual.process_file(
                     cap, code_path, signal, proc, station,
-                    remote=remote, device=dev,
+                    remote=remote, device=dev, **chain_kwargs,
                 )
             elif chain == "goranging":
                 out = goranging.process_file(
                     cap, code_path, signal, proc, remote=remote, device=dev,
+                    **chain_kwargs,
                 )
             else:
                 raise ValueError(f"unknown chain {chain!r}")
@@ -608,18 +619,19 @@ def process_directory(
         if out is None:
             report.skipped.append(cap)
             continue
-        if out.get("mat_path"):
+        if gzip_outputs and out.get("mat_path"):
             matio.gzip_file(out["mat_path"])
-        io.move_to_done(cap)
+        if move_done:
+            io.move_to_done(cap)
         report.processed.append(cap)
     return report
 
 
-def gzip_archives(directory: str) -> list[str]:
-    """gzip the bare ``*.mat`` archives in a directory (``goprocess.sh``
-    preamble)."""
+def gzip_archives(directory: str, pattern: str = "*.mat") -> list[str]:
+    """gzip the bare archives matching ``pattern`` in a directory
+    (``goprocess.sh`` preamble)."""
     return [matio.gzip_file(p)
-            for p in sorted(glob.glob(os.path.join(directory, "*.mat")))]
+            for p in sorted(glob.glob(os.path.join(directory, pattern)))]
 
 
 def next_sampling_window(now: _dt.datetime) -> tuple[_dt.datetime, float]:

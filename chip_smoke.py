@@ -153,8 +153,51 @@ S.  runs the correlator studies at production geometry on the card
     prints each one's wall time and peak device memory and asserts the
     conclusion its JAX test asserts.
 
-It prints the card's name and power limit (``nvidia-smi``), one
-``{"kernels": [...]}`` line, and as its last line
+The paths no earlier phase ran on the card (after the sharded phase, on
+the GoRanging capture; after the two-way phase, on its OP captures):
+
+R1. runs ``ranging`` in-process on the GoRanging capture (godual's card
+    branch: the bound step with the per-epoch masked df, its calls
+    counted by a wrapper of ``boundary.make_ranging_step``), checks each
+    channel's median delay within 0.01 sample of the truth, every epoch's
+    df within 1 Hz of the squaring bin's label nearest twice the truth
+    (the coarse estimate's resolution is 12.5 Hz), the Octave-convention
+    ``.mat`` fields, and prints the wall and IQ MS/s;
+R2. runs ``ranging --remote`` on a copy of the capture's first 4 s whose
+    channel 1 is moved by 50 kHz into LTFB's remote window: one channel,
+    the ``remote`` prefix, the same truth checks;
+R3. runs ``godual.process_file`` with ``fine_freq=True``: every epoch's
+    df within 1 Hz of the truth;
+R4. holds each run's first 25 epochs per channel against the same bound
+    step on the CPU (indice identical, correction within 1e-4 sample, snr
+    within 1e-3 of the total, df within 0.05 Hz) and against the CPU's
+    host branch on a prefix (delays within 0.01 sample);
+B1. runs ``batch --chain goranging`` and ``--chain godual`` over a
+    directory each holding a 4-s ``1*.bin`` copy of the GoRanging capture
+    and a ``2*.bin`` one the glob does not pick: one capture processed,
+    none skipped or failed, its gunzipped ``.mat`` equal field for field
+    to the single-file verb's (``goranging``, ``ranging``) on a copy, the
+    input moved to ``donetw/``, and a second run with nothing to do;
+B2. the same with ``--chain claudio`` over OP's two 34-s captures, the
+    loopback moved by 50 kHz into claudio's ranging window (the archive
+    against the truth as in step 11); the capture put back is skipped;
+B3. calls ``pipeline.process_directory`` on OP's remote capture with
+    ``pattern``, ``ranging=False``, ``gzip_outputs=False``,
+    ``move_done=False`` and ``transfer="int8"``: nothing gzipped or
+    moved, the archive equal to the ``claudio`` verb's from step 11;
+P1. writes the JAX package's on-chip parity capture (50 fractional-delay
+    epochs at production geometry, ``tests_tpu/test_device_parity.py``'s
+    arithmetic) and runs ``process_capture_overlapped`` with float16,
+    int8, int8 under ``TWSTFT_Q8_POW2=1`` and sc16 ingest: each run's
+    delays against a float64 oracle (the port's complex128 correlator on
+    the CPU) at p99 under 8 / 36 / 54 / 8 ps, printing p50, p99 and max;
+P2. runs ``make_ranging_step(nint=4, packed=True)`` at the fractions
+    0.1-0.83 with df 0: the largest error under 60 ps.
+
+It prints the card's name and power limit (``nvidia-smi``), a line of
+numbers per slice (``{"ranging": ...}``, ``{"batch": ...}`` and
+``{"parity": ...}`` among them), one ``{"kernels": [...]}`` line, and as
+its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch files go to the git-ignored ``amaranth_twstft_tpu_torch/build/``.
 """
@@ -223,6 +266,22 @@ HOST_CPU_SECONDS = 3  # the card-vs-CPU prefix
 HOST_CPU_FC_HZ = 1e-3
 HOST_CPU_GD_NS = 0.01
 MON_SECONDS = 10  # appended to the tailed file, one second per second
+# phase R: the ranging verb (godual's card branch) on the GoRanging capture
+RG_CPU_EPOCHS = 25  # each channel's first epochs: the card against the CPU
+RG_REMOTE_SECONDS = 4  # the remote run's copy of the capture
+RG_REMOTE_SHIFT_HZ = 50e3  # channel 1 into LTFB's remote window, 40-60 kHz
+# phase B: the batch verb over its three chains
+B_PREFIX_SECONDS = 4  # the dual-channel directories' copy of the capture
+B_RANGING_SHIFT_HZ = 50e3  # OP's loopback into claudio's ranging window
+# phase P: the JAX package's on-chip parity checks
+# (tests_tpu/test_device_parity.py): 50 epochs of a fractional-delay
+# capture, each ingest form's delays against a float64 oracle (p99, ps),
+# and the nint = 4 step at adversarial fractions (largest error, ps)
+P_EPOCHS = 50
+P_BATCH = 125  # the JAX suite's batch: one zero-padded batch
+P99_BOUND_PS = {"float16": 8.0, "int8": 36.0, "int8-pow2": 54.0, "sc16": 8.0}
+NINT4_FRACS = (0.1, 0.25, 0.37, 0.5, 0.62, 0.83)
+NINT4_BOUND_PS = 60.0
 # the staged matmul FFT's shapes (a GoRanging batch of 50 codes, one 2-s
 # claudio block) and the CUDA-event repetitions of each
 MX_SHAPES = (((50, 200_000), 10), ((1, 10**7), 5))
@@ -350,6 +409,51 @@ def timing_hooks(targets):
     finally:
         for owner, attr, fn in reversed(saved):
             setattr(owner, attr, fn)
+
+
+@contextlib.contextmanager
+def counted_steps(sink: list):
+    """Wrap ``boundary.make_ranging_step`` so that every step it binds
+    appends each call's host wall time to ``sink`` (its length is the
+    step's call count), as ``timing_hooks`` wraps a callable; the
+    original is restored on exit."""
+    from amaranth_twstft_tpu_torch.ops import boundary
+
+    orig = boundary.make_ranging_step
+
+    def make(*a, **kw):
+        step = orig(*a, **kw)
+
+        def counted(*sa, **skw):
+            t0 = time.perf_counter()
+            try:
+                return step(*sa, **skw)
+            finally:
+                sink.append(time.perf_counter() - t0)
+
+        return counted
+
+    boundary.make_ranging_step = make
+    try:
+        yield
+    finally:
+        boundary.make_ranging_step = orig
+
+
+def run_verb(argv: list[str]) -> tuple[str, float]:
+    """A ``twstft-torch`` verb in-process; raises unless it exits 0.
+    Returns its standard output and wall time."""
+    from amaranth_twstft_tpu_torch import cli
+
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv)} exited {rc}")
+    return stdout.getvalue(), wall
 
 
 def run_dllpll(work: str, truths: dict, cap: str, dev, kept_reports=None):
@@ -558,7 +662,7 @@ def run_goranging_cli(cap: str, code: str, out_mat: str, dev, mode: str = "--fas
     """The main path: ``twstft-torch goranging --fast`` (or ``mode``
     ``--sharded``) in-process, with ``extra`` arguments.  Returns the
     pipeline's output dict and the call's wall time."""
-    from amaranth_twstft_tpu_torch import cli, pipeline
+    from amaranth_twstft_tpu_torch import pipeline
 
     kept = {}
     name = {"--fast": "process_capture_overlapped",
@@ -572,17 +676,10 @@ def run_goranging_cli(cap: str, code: str, out_mat: str, dev, mode: str = "--fas
 
     setattr(pipeline, name, keep)
     try:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()), \
-                contextlib.redirect_stderr(io.StringIO()):
-            rc = cli.main(["goranging", cap, code, mode, "--device", str(dev),
-                           "--batch-epochs", str(GR_BATCH), *extra])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        _, wall = run_verb(["goranging", cap, code, mode, "--device", str(dev),
+                            "--batch-epochs", str(GR_BATCH), *extra])
     finally:
         setattr(pipeline, name, orig)
-    if rc != 0:
-        raise RuntimeError(f"goranging exited {rc}")
     return kept["out"], wall
 
 
@@ -912,7 +1009,6 @@ def run_claudio_cli(cap: str, code: str, site: str, ch: str, dev):
     """The main path: ``twstft-torch claudio`` in-process (production
     ``ProcessingConfig(conjugate_data=True)``).  Returns the chain's
     result dict and the call's wall time."""
-    from amaranth_twstft_tpu_torch import cli
     from amaranth_twstft_tpu_torch.models import claudio
 
     kept = {}
@@ -926,16 +1022,11 @@ def run_claudio_cli(cap: str, code: str, site: str, ch: str, dev):
             "--device", str(dev)] + (["--op"] if site == "OP" else [])
     claudio.process_file = keep
     try:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()), \
-                contextlib.redirect_stderr(io.StringIO()):
-            rc = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        _, wall = run_verb(argv)
     finally:
         claudio.process_file = orig
-    if rc != 0 or kept.get("out") is None:
-        raise RuntimeError(f"claudio {cap} exited {rc}")
+    if kept.get("out") is None:
+        raise RuntimeError(f"claudio {cap}: already done")
     return kept["out"], wall
 
 
@@ -943,8 +1034,12 @@ def tracked_delays(out: dict) -> np.ndarray:
     return out["indice"].astype(np.float64) + out["correction"] / 3.0
 
 
-def twoway_phase(work: str, dev, seed: int, lt_taps: int) -> dict:
-    """Steps 11-15; returns the numbers of the ``{"twoway": ...}`` line."""
+def twoway_phase(work: str, dev, seed: int, lt_taps: int, keep: dict | None = None) -> dict:
+    """Steps 11-15; returns the numbers of the ``{"twoway": ...}`` line.
+    With ``keep`` (phase B's), OP's two captures are linked into
+    ``keep["dirs"][channel]`` before they are deleted, and ``keep`` gets
+    their paths, the codes, the truths and the claudio verb's OP_1
+    archive."""
     from amaranth_twstft_tpu_torch import cli
     from amaranth_twstft_tpu_torch.config import (
         ProcessingConfig,
@@ -1018,8 +1113,7 @@ def twoway_phase(work: str, dev, seed: int, lt_taps: int) -> dict:
         if prefix is None:
             # a 4-s prefix of the first capture, for the CPU comparison
             prefix = (os.path.join(root, f"{ts[site]}{ch}_prefix.bin"), codes[taps])
-            with open(cap, "rb") as src, open(prefix[0], "wb") as dst:
-                dst.write(src.read(TW_PREFIX_SECONDS * int(fs) * 4))
+            copy_prefix(cap, prefix[0], TW_PREFIX_SECONDS * int(fs), channels=1)
         if site == "LTFB" and ch == "_1":
             # -- 13. the busy share over one traced warm file ----------------
             os.makedirs(os.path.join(root, "traced"), exist_ok=True)
@@ -1034,7 +1128,15 @@ def twoway_phase(work: str, dev, seed: int, lt_taps: int) -> dict:
             files[f"{site}{ch}"].update(busy_ms=busy, traced_wall_s=traced_wall)
             last = (cap, codes[taps])
         else:
+            if keep is not None and site == "OP":
+                kept = os.path.join(keep["dirs"][ch], os.path.basename(cap))
+                os.link(cap, kept)
+                keep[f"OP{ch}"] = kept
+                if ch == "_1":
+                    keep["OP_1_mat"] = out["mat_path"]
             os.remove(cap)
+    if keep is not None:
+        keep.update(codes={"OP": codes[9], "LTFB": codes[lt_taps]}, truths=truths)
 
     # -- 14. the block step's functions at production shapes -----------------
     cap, code = last
@@ -2083,6 +2185,530 @@ def studies_phase(dev) -> dict:
     }
 
 
+def run_ranging_cli(cap: str, code: str, dev, extra: tuple = ()):
+    """The ``ranging`` verb in-process, its step calls counted.  Returns
+    ``godual.process_file``'s dict, the step's call times and the wall."""
+    from amaranth_twstft_tpu_torch.models import godual
+
+    kept, calls = {}, []
+    orig = godual.process_file
+
+    def keep(*a, **kw):
+        kept["out"] = orig(*a, **kw)
+        return kept["out"]
+
+    godual.process_file = keep
+    try:
+        with counted_steps(calls):
+            _, wall = run_verb(["ranging", cap, code, "--device", str(dev), *extra])
+    finally:
+        godual.process_file = orig
+    return kept["out"], calls, wall
+
+
+def copy_prefix(src: str, dst: str, n_frames: int, channels: int = 2) -> None:
+    """The first ``n_frames`` sample frames of an sc16 capture."""
+    with open(src, "rb") as f, open(dst, "wb") as g:
+        g.write(f.read(n_frames * 4 * channels))
+
+
+def shifted_copy(src: str, dst: str, seconds: int, shift_hz: float, channels: int,
+                 dev) -> None:
+    """The first ``seconds`` of an sc16 capture with its first channel moved
+    by ``shift_hz`` (on the card one second at a time, rounded back to
+    int16; the other channel as it is).  The delay is unchanged."""
+    fs = int(FS)
+    t = torch.arange(fs, device=dev, dtype=torch.float64)
+    with open(src, "rb") as f, open(dst, "wb") as g:
+        for s0 in range(0, seconds * fs, fs):
+            raw = np.frombuffer(f.read(fs * 4 * channels), np.int16).reshape(-1, 2 * channels)
+            x = torch.from_numpy(raw.copy()).to(dev)
+            n = x.shape[0]
+            z = torch.complex(x[:, 0].double(), x[:, 1].double())
+            ph = torch.remainder(shift_hz * (t[:n] + s0) / FS, 1.0)
+            z = z * torch.exp(2j * math.pi * ph)
+            x[:, 0] = torch.clamp(torch.round(z.real), -32768, 32767).to(torch.int16)
+            x[:, 1] = torch.clamp(torch.round(z.imag), -32768, 32767).to(torch.int16)
+            g.write(x.cpu().numpy().tobytes())
+
+
+def check_ranging(what: str, out: dict, truths: list, fine: bool) -> dict:
+    """Each channel's median delay within ``GR_DELAY_TOL`` of its truth and
+    every epoch's df within ``GR_DF_TOL``: of the truth when the fine
+    frequency refined it; else of the coarse estimate's target.  The
+    per-epoch squaring spectrum peaks at the FFT bin nearest twice the
+    Doppler (bins fs / L = 25 Hz apart at L = 200 000), and the chain reads
+    df off the reference's inclusive linspace (``godual_ranging.m:73``),
+    whose label for bin i lies i fs / (L (L - 1)) above the bin's
+    frequency: the target is that label, halved.  ``truths``: (delay,
+    Doppler) per channel."""
+    from amaranth_twstft_tpu_torch.ops.fftutils import fftfreq_shifted
+
+    L = CODE_LEN * int(FS // CHIP_RATE)
+    bins = np.fft.fftshift(np.fft.fftfreq(L, 1.0 / FS))
+    labels = fftfreq_shifted(L, FS)
+    errs = {}
+    for c, (delay, dop) in enumerate(truths):
+        ch = f"ch{c + 1}"
+        dl = delays_samples(out[ch])
+        df = np.asarray(out[ch]["df"], np.float64)
+        target = float(dop) if fine else float(labels[np.argmin(np.abs(bins - 2.0 * dop))] / 2.0)
+        d_err = float(np.median(dl) - delay)
+        df_err = float(np.abs(df - target).max())
+        truth_err = float(np.abs(df - dop).max())
+        errs[ch] = {"delay_err_samples": d_err, "delay_pp_samples": float(np.ptp(dl)),
+                    "df_err_hz": df_err, "df_err_vs_truth_hz": truth_err,
+                    "df_target_hz": target}
+        log(f"  {what} {ch}: {len(dl)} epochs, median delay err {d_err:+.5f} sample "
+            f"(p-p {np.ptp(dl):.4f}); max |df - {'truth' if fine else 'bin label'} "
+            f"{target:.4f}| {df_err:.4f} Hz, max |df - truth {dop:.4f}| {truth_err:.4f} Hz")
+        if abs(d_err) > GR_DELAY_TOL or df_err > GR_DF_TOL:
+            raise RuntimeError(f"{what} {ch}: truth check failed")
+    return errs
+
+
+def ranging_vs_cpu(what: str, out: dict, cap: str, code: str, proc, station,
+                   remote: bool, work: str) -> dict:
+    """The card branch's first ``RG_CPU_EPOCHS`` epochs of each channel
+    against (a) the same bound step on the CPU (indice identical,
+    correction within 1e-4 sample, snr within 1e-3 of the total, df within
+    0.05 Hz: ``tests/test_torch_cuda.py::_close_ranging``) and (b) the
+    host branch, ``godual.process_file(device="cpu")``, on a prefix of the
+    capture (delays within ``GR_DELAY_TOL``)."""
+    from amaranth_twstft_tpu_torch.config import SignalConfig
+    from amaranth_twstft_tpu_torch.models import godual
+    from amaranth_twstft_tpu_torch.ops import boundary, doppler
+    from amaranth_twstft_tpu_torch.utils import io as sc16
+
+    cfg = SignalConfig()
+    L = cfg.samples_per_code
+    rep = godual.build_replica(code, cfg, proc)
+    mask = doppler.window_mask(L, cfg.fs, *godual.df_window(station, remote))
+    step = boundary.make_ranging_step(rep.fcode, rep.code_interp, mask, cfg.fs,
+                                      nint=proc.nint, fine_freq=proc.fine_freq,
+                                      device="cpu")
+    d, n = sc16.read_sc16_epochs(cap, 0, RG_CPU_EPOCHS, L)
+    prefix = os.path.join(work, "ranging_prefix.bin")
+    copy_prefix(cap, prefix, n * L)
+    t0 = time.perf_counter()
+    host = godual.process_file(prefix, code, cfg, proc, station, remote=remote,
+                               out_mat=os.path.join(work, "ranging_prefix.mat"),
+                               device="cpu")
+    t_host = time.perf_counter() - t0
+    os.remove(prefix)
+    worst = {"correction": 0.0, "snr_rel": 0.0, "df_hz": 0.0, "host_delay": 0.0}
+    for c in range(1 if remote else 2):
+        ch = f"ch{c + 1}"
+        card = {k: np.asarray(v)[:n] for k, v in out[ch].items()}
+        rows = step(torch.from_numpy(d[c]))
+        cpu, cpu_df = boundary.to_epoch_result(rows), rows.df.numpy()
+        if not np.array_equal(card["indice"], cpu.indice):
+            raise RuntimeError(f"{what} {ch}: card vs CPU step, indice differs")
+        worst["correction"] = max(worst["correction"], float(
+            np.abs(card["correction"] - cpu.correction).max()))
+        tot = cpu.snr_r + cpu.snr_i
+        worst["snr_rel"] = max(worst["snr_rel"], *(
+            float((np.abs(card[f] - getattr(cpu, f)) / tot).max())
+            for f in ("snr_r", "snr_i")))
+        worst["df_hz"] = max(worst["df_hz"], float(np.abs(card["df"] - cpu_df).max()))
+        worst["host_delay"] = max(worst["host_delay"], float(np.abs(
+            delays_samples(card) - delays_samples(host[ch])).max()))
+    log(f"  {what} card vs the same step on the CPU ({n} epochs per channel): indice "
+        f"identical, max correction diff {worst['correction']:.2e} sample, snr "
+        f"{worst['snr_rel']:.2e} of the total, df {worst['df_hz']:.2e} Hz; vs the CPU's "
+        f"host branch ({t_host:.2f} s): max delay diff {worst['host_delay']:.2e} sample")
+    if worst["correction"] > 1e-4 or worst["snr_rel"] > 1e-3 or worst["df_hz"] > 0.05 \
+            or worst["host_delay"] > GR_DELAY_TOL:
+        raise RuntimeError(f"{what}: card vs CPU {worst}")
+    return worst
+
+
+def ranging_phase(work: str, cap: str, code: str, truth: dict, dev) -> dict:
+    """Steps R1-R4 on the GoRanging capture; returns the numbers of the
+    ``{"ranging": ...}`` line."""
+    import scipy.io as sio
+
+    from amaranth_twstft_tpu_torch.config import (
+        ProcessingConfig,
+        SignalConfig,
+        StationConfig,
+    )
+    from amaranth_twstft_tpu_torch.models import godual
+
+    cfg = SignalConfig()
+    n_epochs = GR_SECONDS * round(cfg.codes_per_second)
+    steps = -(-n_epochs // 25)  # godual's 25-epoch batches per channel
+    truths = list(zip(truth["delay"], truth["doppler"]))
+    out: dict = {}
+
+    # -- R1. ranging, both channels: the card branch of godual.process_file
+    local, calls, wall = run_ranging_cli(cap, code, dev)
+    msps = GR_SECONDS * cfg.fs * 2 / wall / 1e6
+    log(f"R1 ranging (local, both channels): wall {wall:.3f} s -> {msps:.2f} IQ MS/s "
+        f"over both channels; {len(calls)} step calls (host {sum(calls):.3f} s)")
+    if len(calls) != 2 * steps:
+        raise RuntimeError(f"ranging: {len(calls)} step calls, expected {2 * steps}")
+    mat = sio.loadmat(local["mat_path"])
+    if os.path.basename(local["mat_path"]) != "ranging.mat":
+        raise RuntimeError(f"ranging wrote {local['mat_path']}")
+    for c in (1, 2):
+        h = local[f"ch{c}"]
+        pairs = {f"indice{c}": h["indice"] + 1.0, f"correction{c}": h["correction"],
+                 f"SNR{c}r": h["snr_r"], f"SNR{c}i": h["snr_i"], f"df{c}": h["df"],
+                 f"puissance{c}": h["puissance"]}
+        for k, v in pairs.items():
+            if not np.array_equal(mat[k].ravel(), np.asarray(v, np.float64).ravel()):
+                raise RuntimeError(f"ranging .mat field {k} differs from the result")
+    if "code" not in mat:
+        raise RuntimeError("ranging .mat has no code field")
+    out["local"] = {"wall_s": wall, "iq_msps": msps, "step_calls": len(calls),
+                    "step_host_s": sum(calls),
+                    "errors": check_ranging("R1 ranging", local, truths, fine=False),
+                    "mat_fields": sorted(k for k in mat if not k.startswith("__"))}
+
+    # -- R2. ranging --remote: channel 1 of a copy moved into the window ---
+    rdir = os.path.join(work, "remote")
+    os.makedirs(rdir, exist_ok=True)
+    rcap = os.path.join(rdir, "ranging.bin")
+    t0 = time.perf_counter()
+    shifted_copy(cap, rcap, RG_REMOTE_SECONDS, RG_REMOTE_SHIFT_HZ, 2, dev)
+    t_copy = time.perf_counter() - t0
+    remote, rcalls, rwall = run_ranging_cli(rcap, code, dev, ("--remote",))
+    rmat = sio.loadmat(remote["mat_path"])
+    log(f"R2 ranging --remote on {RG_REMOTE_SECONDS} s with channel 1 moved by "
+        f"{RG_REMOTE_SHIFT_HZ:g} Hz (copy {t_copy:.2f} s): wall {rwall:.3f} s, "
+        f"{len(rcalls)} step calls, wrote {os.path.basename(remote['mat_path'])}")
+    r_epochs = RG_REMOTE_SECONDS * round(cfg.codes_per_second)
+    if remote["ch2"] is not None or len(rcalls) != -(-r_epochs // 25) \
+            or os.path.basename(remote["mat_path"]) != "remoteranging.mat" \
+            or "indice2" in rmat or "indice1" not in rmat:
+        raise RuntimeError("ranging --remote: channels, step calls or .mat name wrong")
+    r_truth = [(truth["delay"][0], truth["doppler"][0] + RG_REMOTE_SHIFT_HZ)]
+    out["remote"] = {"wall_s": rwall, "step_calls": len(rcalls), "seconds": RG_REMOTE_SECONDS,
+                     "errors": check_ranging("R2 ranging --remote", remote, r_truth,
+                                             fine=False)}
+
+    # -- R3. godual.process_file with the fine frequency -------------------
+    fproc = ProcessingConfig(fine_freq=True)
+    fcalls: list = []
+    with counted_steps(fcalls):
+        t0 = time.perf_counter()
+        fine = godual.process_file(cap, code, cfg, fproc, StationConfig(),
+                                   out_mat=os.path.join(work, "ranging_fine.mat"),
+                                   device=dev)
+        torch.cuda.synchronize()
+        fwall = time.perf_counter() - t0
+    log(f"R3 godual.process_file(fine_freq=True): wall {fwall:.3f} s -> "
+        f"{GR_SECONDS * cfg.fs * 2 / fwall / 1e6:.2f} IQ MS/s, {len(fcalls)} step calls")
+    if len(fcalls) != 2 * steps:
+        raise RuntimeError(f"fine_freq: {len(fcalls)} step calls")
+    out["fine"] = {"wall_s": fwall, "step_calls": len(fcalls),
+                   "errors": check_ranging("R3 fine_freq", fine, truths, fine=True)}
+
+    # -- R4. the card branch against the CPU --------------------------------
+    out["local"]["vs_cpu"] = ranging_vs_cpu("R4 ranging", local, cap, code,
+                                            ProcessingConfig(), StationConfig(), False, work)
+    out["remote"]["vs_cpu"] = ranging_vs_cpu("R4 ranging --remote", remote, rcap, code,
+                                             ProcessingConfig(), StationConfig(op=False),
+                                             True, work)
+    out["fine"]["vs_cpu"] = ranging_vs_cpu("R4 fine_freq", fine, cap, code, fproc,
+                                           StationConfig(), False, work)
+    os.remove(rcap)
+    return out
+
+
+def batch_sources(work: str, cap: str, code: str) -> tuple[str, str]:
+    """Phase B's dual-channel directories (before the GoRanging capture is
+    deleted): for each of ``goranging`` and ``godual`` a ``1*.bin`` copy of
+    the capture's first ``B_PREFIX_SECONDS``, a ``2*.bin`` one the chain's
+    glob does not pick, and the copy the single-file verb runs on; and the
+    directories the two-way phase links OP's captures into.  Returns the
+    phase's root and its copy of the code."""
+    root = os.path.join(work, "batch")
+    src = os.path.join(root, "dual_prefix.bin")
+    for d in ("src", "claudio"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    copy_prefix(cap, src, B_PREFIX_SECONDS * int(FS))
+    for chain in ("goranging", "godual"):
+        for d, names in ((chain, ("1755400000.bin", "2755400000.bin")),
+                         (chain + "_ref", ("1755400000.bin",))):
+            os.makedirs(os.path.join(root, d), exist_ok=True)
+            for name in names:
+                shutil.copyfile(src, os.path.join(root, d, name))
+    os.remove(src)
+    shutil.copyfile(code, os.path.join(root, "code.bin"))
+    return root, os.path.join(root, "code.bin")
+
+
+def gunzipped(path: str) -> str:
+    """Unpack ``path`` (``.mat.gz``) beside it; returns the bare path."""
+    import gzip
+
+    bare = path[: -len(".gz")] + ".unpacked.mat"
+    with gzip.open(path, "rb") as f, open(bare, "wb") as g:
+        shutil.copyfileobj(f, g)
+    return bare
+
+
+def batch_dir(root: str, chain: str, name: str, code: str, ref_argv: list[str],
+              dev, other: str) -> dict:
+    """B1-B3 for one chain: the single-file verb on the reference copy,
+    then ``batch`` over the directory: ``name`` processed, nothing skipped
+    or failed, its gunzipped ``.mat`` equal to the verb's field for field,
+    the input in ``donetw/`` and ``other`` (not picked) in place; then a
+    second run that finds nothing to do and leaves the archive as it was."""
+    d, ref = os.path.join(root, chain), os.path.join(root, chain + "_ref")
+    ref_out, ref_wall = run_verb([*ref_argv[:1], os.path.join(ref, name), code,
+                                  *ref_argv[1:], "--device", str(dev)])
+    ref_mat = ref_out.strip().splitlines()[-1]
+    argv = ["batch", d, code, "--chain", chain, "--device", str(dev)]
+    rep_out, wall = run_verb(argv)
+    rep = json.loads(rep_out.strip().splitlines()[-1])
+    cap = os.path.join(d, name)
+    if rep != {"processed": [cap], "skipped": [], "failed": []}:
+        raise RuntimeError(f"batch --chain {chain}: {rep}")
+    gz = os.path.join(d, os.path.basename(ref_mat) + ".gz")
+    bare = gunzipped(gz)
+    n_fields = mat_fields_equal(bare, ref_mat)
+    os.remove(bare)
+    if os.path.exists(cap) or not os.path.exists(os.path.join(d, "donetw", name)) \
+            or not os.path.exists(os.path.join(d, other)) \
+            or os.path.exists(os.path.join(d, os.path.basename(ref_mat))):
+        raise RuntimeError(f"batch --chain {chain}: files not where expected: "
+                           f"{sorted(os.listdir(d))}")
+    stamp = os.stat(gz).st_mtime_ns
+    again_out, again_wall = run_verb(argv)
+    again = json.loads(again_out.strip().splitlines()[-1])
+    if again != {"processed": [], "skipped": [], "failed": []} \
+            or os.stat(gz).st_mtime_ns != stamp:
+        raise RuntimeError(f"batch --chain {chain}, second run: {again}")
+    log(f"B {chain}: batch wall {wall:.3f} s (the single-file verb {ref_wall:.3f} s), "
+        f"processed {name}; gunzipped .mat equal to the verb's in {n_fields} fields; "
+        f"input in donetw/, {other} left in place; second run ({again_wall:.3f} s) "
+        f"found nothing to do")
+    return {"wall_s": wall, "verb_wall_s": ref_wall, "second_wall_s": again_wall,
+            "mat_fields": n_fields, "processed": [name]}
+
+
+def batch_phase(root: str, dev, gr_code: str, kept: dict) -> dict:
+    """Steps B1-B4; ``kept`` holds what the two-way phase kept for it (OP's
+    captures, codes, truths and the claudio verb's OP_1 archive).  Returns
+    the numbers of the ``{"batch": ...}`` line."""
+    import gzip
+
+    import scipy.io as sio
+
+    from amaranth_twstft_tpu_torch import pipeline
+    from amaranth_twstft_tpu_torch.config import SignalConfig, StationConfig
+
+    cfg = SignalConfig()
+    out: dict = {"prefix_seconds": B_PREFIX_SECONDS}
+    # -- B1-B2. goranging and godual over a dual-channel directory each ------
+    out["goranging"] = batch_dir(root, "goranging", "1755400000.bin", gr_code,
+                                 ["goranging"], dev, "2755400000.bin")
+    out["godual"] = batch_dir(root, "godual", "1755400000.bin", gr_code,
+                              ["ranging"], dev, "2755400000.bin")
+
+    # -- B3. claudio: OP's loopback moved into the ranging window, OP's remote
+    cdir = os.path.join(root, "claudio")
+    os.makedirs(os.path.join(root, "claudio_ref"), exist_ok=True)
+    name = os.path.basename(kept["OP_2"])
+    t0 = time.perf_counter()
+    shifted_copy(kept["OP_2"], os.path.join(cdir, name), TW_SECONDS, B_RANGING_SHIFT_HZ,
+                 1, dev)
+    t_copy = time.perf_counter() - t0
+    os.remove(kept["OP_2"])
+    shutil.copyfile(os.path.join(cdir, name), os.path.join(root, "claudio_ref", name))
+    remote_name = os.path.basename(kept["OP_1"])
+    log(f"B claudio: {name} moved by {B_RANGING_SHIFT_HZ:g} Hz ({t_copy:.2f} s), "
+        f"{remote_name} as the two-way phase wrote it")
+    code9 = kept["codes"]["OP"]
+    out["claudio"] = batch_dir(root, "claudio", name, code9, ["claudio"], dev,
+                               remote_name)
+    # the archive against the truth: OP's loopback, moved
+    with gzip.open(os.path.join(cdir, "rangingclaudio" + name.replace(".bin", ".mat.gz"))) as f:
+        m = sio.loadmat(f)
+    _, delay, dop, _ = kept["truths"][("OP", "_2")]
+    # the archive holds the result's indice and correction as they are
+    tracked = m["indice1"].ravel() + m["correction1"].ravel() / 3.0
+    d_err = float(np.median(tracked) - folded_delay(delay))
+    df_err = float(np.abs(m["df"].ravel() - (dop + B_RANGING_SHIFT_HZ)).max())
+    log(f"  claudio batch archive: median delay err {d_err:+.5f} sample (folded truth "
+        f"{folded_delay(delay):.4f}), max |df - truth| {df_err:.4f} Hz over "
+        f"{m['df'].size} codes")
+    if abs(d_err) > TW_DELAY_TOL or df_err > TW_DF_TOL:
+        raise RuntimeError("batch --chain claudio: truth check failed")
+    out["claudio"].update(delay_err_samples=d_err, df_err_hz=df_err)
+    # the input put back: the archive is there, so the capture is skipped
+    cap = os.path.join(cdir, name)
+    os.replace(os.path.join(cdir, "donetw", name), cap)
+    rep_out, _ = run_verb(["batch", cdir, code9, "--device", str(dev)])
+    rep = json.loads(rep_out.strip().splitlines()[-1])
+    if rep != {"processed": [], "skipped": [cap], "failed": []} or not os.path.exists(cap):
+        raise RuntimeError(f"batch --chain claudio over a done capture: {rep}")
+    log(f"  claudio: {name} put back is skipped (its archive exists) and stays in place")
+    out["claudio"]["resume_skipped"] = [name]
+    os.remove(cap)
+
+    # -- B4. process_directory: pattern, ranging, no gzip, no move, a keyword
+    t0 = time.perf_counter()
+    rep = pipeline.process_directory(
+        cdir, kept["codes"]["LTFB"], cfg, station=StationConfig(op=True), chain="claudio",
+        pattern="*_1.bin", remote=True, ranging=False, gzip_outputs=False,
+        move_done=False, device=dev, transfer="int8")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rcap = os.path.join(cdir, remote_name)
+    mat = os.path.join(cdir, "remoteclaudio" + remote_name.replace(".bin", ".mat"))
+    if rep.processed != [rcap] or rep.skipped or rep.failed or not os.path.exists(rcap) \
+            or not os.path.exists(mat) or os.path.exists(mat + ".gz") \
+            or os.listdir(os.path.join(cdir, "donetw")) != []:
+        raise RuntimeError(f"process_directory without gzip and move: {rep}, "
+                           f"{sorted(os.listdir(cdir))}")
+    n_fields = mat_fields_equal(mat, kept["OP_1_mat"])
+    log(f"B4 process_directory(pattern='*_1.bin', remote=True, ranging=False, "
+        f"gzip_outputs=False, move_done=False, transfer='int8'): wall {wall:.3f} s, "
+        f"processed {remote_name}, bare .mat equal to the two-way phase's claudio "
+        f"verb archive in {n_fields} fields, nothing gzipped or moved")
+    out["process_directory"] = {"wall_s": wall, "mat_fields": n_fields,
+                                "processed": [os.path.basename(p) for p in rep.processed]}
+    os.remove(rcap)
+    return out
+
+
+def parity_capture(work: str) -> dict:
+    """The JAX suite's fractional-delay capture (``tests_tpu/
+    test_device_parity.py:22-48``, its arithmetic copied): ``P_EPOCHS``
+    epochs at production geometry, channel 1 at a delay of 1234 plus a
+    uniform fraction per epoch, amplitude 800 in noise 300, channel 2 at
+    56.25 samples, amplitude 2000 in noise 150, both at 0 Hz."""
+    from amaranth_twstft_tpu_torch.config import SignalConfig
+    from amaranth_twstft_tpu_torch.ops.lfsr import prn_chips, write_prn_file
+    from amaranth_twstft_tpu_torch.ops.prn import chips_to_pm1, upsample_zoh
+
+    cfg = SignalConfig()
+    L = cfg.samples_per_code
+    code64 = chips_to_pm1(upsample_zoh(prn_chips(cfg.bit_len, cfg.taps, cfg.code_len),
+                                       cfg.samples_per_chip), np.float64)
+    spec = np.fft.fft(code64)
+    k = np.fft.fftfreq(L)
+    rng = np.random.default_rng(42)
+    fracs = rng.uniform(0, 1, P_EPOCHS)
+    pdir = os.path.join(work, "parity")
+    os.makedirs(pdir, exist_ok=True)
+    cap, code = os.path.join(pdir, "cap.bin"), os.path.join(pdir, "code.bin")
+    write_prn_file(code, cfg.bit_len, cfg.code_len, cfg.taps)
+    frames = np.empty((P_EPOCHS * L, 4), np.int16)
+    for i in range(P_EPOCHS):
+        s = np.fft.ifft(spec * np.exp(-2j * np.pi * k * (1234 + fracs[i])))
+        z1 = 800 * s + rng.normal(0, 300, L) + 1j * rng.normal(0, 300, L)
+        z2 = (2000 * np.fft.ifft(spec * np.exp(-2j * np.pi * k * 56.25))
+              + rng.normal(0, 150, L) + 1j * rng.normal(0, 150, L))
+        sl = slice(i * L, (i + 1) * L)
+        frames[sl, 0] = np.clip(np.round(z1.real), -32768, 32767)
+        frames[sl, 1] = np.clip(np.round(z1.imag), -32768, 32767)
+        frames[sl, 2] = np.clip(np.round(z2.real), -32768, 32767)
+        frames[sl, 3] = np.clip(np.round(z2.imag), -32768, 32767)
+    frames.tofile(cap)
+    return {"dir": pdir, "cap": cap, "code": code, "code64": code64, "spec": spec,
+            "fracs": fracs}
+
+
+def oracle_delays(cap: str, code: str, df: float) -> np.ndarray:
+    """Channel 1's delay per epoch from the port's complex128 correlator on
+    the CPU (the full zero-padded IFFT, nint = 1, Hamming-windowed code),
+    the float64 oracle of ``tests_tpu/test_device_parity.py:50-80``."""
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, SignalConfig
+    from amaranth_twstft_tpu_torch.models.godual import build_replica
+    from amaranth_twstft_tpu_torch.ops.correlator import correlate_epochs
+    from amaranth_twstft_tpu_torch.utils import io as sc16
+
+    cfg = SignalConfig()
+    rep = build_replica(code, cfg, ProcessingConfig(hamming_window=True),
+                        dtype=torch.complex128)
+    d, n = sc16.read_sc16_epochs(cap, 0, P_EPOCHS, rep.samples_per_code,
+                                 dtype=np.complex128)
+    res = correlate_epochs(
+        torch.from_numpy(d[0, :n]), torch.from_numpy(rep.fcode),
+        torch.full((n,), df, dtype=torch.float64), torch.from_numpy(rep.code_interp),
+        cfg.fs, fcode_interp=torch.from_numpy(rep.fcode_interp)).to_host()
+    return (res.indice.astype(np.float64) + res.correction) / 3.0
+
+
+def parity_phase(work: str, dev) -> dict:
+    """Steps P1-P2; returns the numbers of the ``{"parity": ...}`` line."""
+    from amaranth_twstft_tpu_torch import pipeline
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, SignalConfig
+    from amaranth_twstft_tpu_torch.ops import boundary
+    from amaranth_twstft_tpu_torch.ops.prn import interp_code
+
+    cfg = SignalConfig()
+    ps_per_sample = 1e12 / cfg.fs
+    t0 = time.perf_counter()
+    pc = parity_capture(work)
+    log(f"P capture: {P_EPOCHS} epochs x 2 channels in {time.perf_counter() - t0:.1f} s")
+    out: dict = {"forms": {}}
+    oracles: dict = {}
+    # -- P1. every ingest form against the float64 oracle ------------------
+    for mode in ("float16", "int8", "int8-pow2", "sc16"):
+        if mode == "int8-pow2":
+            os.environ["TWSTFT_Q8_POW2"] = "1"
+        try:
+            t0 = time.perf_counter()
+            o = pipeline.process_capture_overlapped(
+                pc["cap"], pc["code"], cfg, ProcessingConfig(hamming_window=True),
+                batch_epochs=P_BATCH, ingest_dtype=mode.split("-")[0],
+                out_mat=os.path.join(pc["dir"], f"o_{mode}.mat"), device=dev)
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("TWSTFT_Q8_POW2", None)
+        df = float(o["df"][0])
+        if df not in oracles:
+            t0 = time.perf_counter()
+            oracles[df] = oracle_delays(pc["cap"], pc["code"], df)
+            log(f"P oracle at df {df!r} Hz: {time.perf_counter() - t0:.2f} s")
+        d_t = delays_samples(o["ch1"])
+        if len(d_t) != P_EPOCHS:
+            raise RuntimeError(f"parity {mode}: {len(d_t)} epochs")
+        err_ps = np.abs(d_t - oracles[df]) * ps_per_sample
+        p50, p99 = (float(np.percentile(err_ps, q)) for q in (50, 99))
+        mx = float(err_ps.max())
+        out["forms"][mode] = {"p50_ps": p50, "p99_ps": p99, "max_ps": mx,
+                              "bound_p99_ps": P99_BOUND_PS[mode], "df_hz": df,
+                              "wall_s": wall}
+        log(f"P1 {mode}: p50 {p50:.2f} p99 {p99:.2f} max {mx:.2f} ps against the float64 "
+            f"oracle (p99 bound {P99_BOUND_PS[mode]:g}); df {df!r} Hz; run {wall:.3f} s")
+        if not p99 < P99_BOUND_PS[mode]:
+            raise RuntimeError(f"parity {mode}: p99 {p99} ps")
+    # -- P2. nint = 4 at adversarial fractions ------------------------------
+    L, r = cfg.samples_per_code, 9
+    k = np.fft.fftfreq(L)
+    spec = pc["spec"]
+    fracs = np.asarray(NINT4_FRACS)
+    step = boundary.make_ranging_step(
+        np.conj(spec).astype(np.complex64),
+        interp_code(pc["code64"].astype(np.float32), r).astype(np.float32),
+        np.ones(L, bool), cfg.fs, nint=4, packed=True, device=dev)
+    frames = np.empty((len(fracs), L, 2), np.float32)
+    for i, fr in enumerate(fracs):
+        s = np.fft.ifft(spec * np.exp(-2j * np.pi * k * (1234 + fr)))
+        frames[i, :, 0], frames[i, :, 1] = 3000 * s.real, 3000 * s.imag
+    rows = step(torch.from_numpy(frames).to(dev),
+                df_fixed=torch.zeros(len(fracs), dtype=torch.float32, device=dev))
+    res = boundary.to_epoch_result(boundary.unpack_outputs(rows.cpu().numpy()))
+    d = (res.indice.astype(np.float64) + res.correction) / r
+    err_ps = np.abs(d - (1234 + fracs)) * ps_per_sample
+    log(f"P2 nint=4 at fractions {list(NINT4_FRACS)}: errors "
+        f"{[round(float(e), 3) for e in err_ps]} ps, max {err_ps.max():.3f} "
+        f"(bound {NINT4_BOUND_PS:g})")
+    if not err_ps.max() < NINT4_BOUND_PS:
+        raise RuntimeError(f"nint=4 bias {err_ps.max()} ps")
+    out["nint4"] = {"errors_ps": err_ps.tolist(), "max_ps": float(err_ps.max()),
+                    "bound_ps": NINT4_BOUND_PS}
+    shutil.rmtree(pc["dir"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -2256,14 +2882,30 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded.update(sharded_phase(work, gr_cap, gr_code, gr_truth, dev, mesh))
     dist.destroy_process_group()
+    log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- R1-R4. ranging: godual's card branch on the GoRanging capture -------
+    t0 = time.perf_counter()
+    rg = ranging_phase(work, gr_cap, gr_code, gr_truth, dev)
+    rg["phase_s"] = time.perf_counter() - t0
+    log(f"ranging phase: {rg['phase_s']:.1f} s")
+    batch_root, batch_code = batch_sources(work, gr_cap, gr_code)
     for f in (gr_cap, gr_code):
         os.remove(f)
-    log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
 
     # -- 11-15. the claudio chain and the two-way products ------------------
     t0 = time.perf_counter()
-    tw = twoway_phase(work, dev, args.seed, next(t for t in taps if t != 9))
+    keep = {"dirs": {"_2": os.path.join(batch_root, "src"),
+                     "_1": os.path.join(batch_root, "claudio")}}
+    tw = twoway_phase(work, dev, args.seed, next(t for t in taps if t != 9), keep)
     log(f"two-way phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- B1-B4. batch over its three chains ----------------------------------
+    t0 = time.perf_counter()
+    bt = batch_phase(batch_root, dev, batch_code, keep)
+    bt["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(batch_root)
+    log(f"batch phase: {bt['phase_s']:.1f} s")
     nat["claudio_read_s"] = {k: f["timing"]["read_s"] for k, f in tw["files"].items()}
     log(f"N2 claudio raw reads through the native library: read_s "
         f"{nat['claudio_read_s']}")
@@ -2281,6 +2923,12 @@ def main() -> int:
     log(f"studies phase: {t_st:.1f} s; native, mxufft and studies phases together "
         f"{t_native + t_mx + t_st:.1f} s")
 
+    # -- P1-P2. the JAX package's on-chip parity checks ----------------------
+    t0 = time.perf_counter()
+    par = parity_phase(work, dev)
+    par["phase_s"] = time.perf_counter() - t0
+    log(f"parity phase: {par['phase_s']:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"goranging": gr}))
@@ -2289,6 +2937,9 @@ def main() -> int:
     log(json.dumps({"monitor": mon, "profile": prof}))
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"native": nat, "mxufft": mx, "studies": st}))
+    log(json.dumps({"ranging": rg}))
+    log(json.dumps({"batch": bt}))
+    log(json.dumps({"parity": par}))
     log(json.dumps({"kernels": [{
         "name": "lagbank",
         "route": "cuda",

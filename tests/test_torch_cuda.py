@@ -242,6 +242,82 @@ def test_ranging_step_packed_int16_on_card_matches_cpu(cuda, tmp_path):
     _close_ranging(rows["cuda"], rows["cpu"])
 
 
+@pytest.mark.parametrize("fine_freq", [False, True])
+def test_godual_card_branch_matches_cpu(cuda, tmp_path, fine_freq):
+    """``godual.process_file`` on the card takes the bound step with the
+    per-epoch masked df: its epochs against the same bound step on the
+    CPU (indice identical, correction 1e-4 sample, snr 1e-3 of the total,
+    df within 0.05 Hz) and against the CPU's host branch (squaring_df and
+    the full correlator: delays within 0.01 sample)."""
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, StationConfig
+    from amaranth_twstft_tpu_torch.models import godual
+    from amaranth_twstft_tpu_torch.ops import boundary, doppler
+    from amaranth_twstft_tpu_torch.utils import io as tio
+
+    cfg, code, cap = _ranging_capture(tmp_path)
+    proc = ProcessingConfig(fine_freq=fine_freq)
+    outs = {}
+    for dev in ("cpu", cuda):
+        outs[str(dev)] = godual.process_file(
+            cap, code, cfg, proc, batch_epochs=20, device=dev,
+            out_mat=str(tmp_path / f"{dev}.mat"))
+    rep = godual.build_replica(code, cfg, proc)
+    L = rep.samples_per_code
+    mask = doppler.window_mask(L, cfg.fs, *godual.df_window(StationConfig(), False))
+    step = boundary.make_ranging_step(rep.fcode, rep.code_interp, mask, cfg.fs,
+                                      fine_freq=fine_freq, device="cpu")
+    d, n = tio.read_sc16_epochs(cap, 0, 50, L)
+    for c, ch in enumerate(("ch1", "ch2")):
+        card = outs["cuda"][ch]
+        assert len(card["indice"]) == n == 50
+        res = step(torch.from_numpy(d[c]))
+        cpu = {f: getattr(res, f).numpy() for f in ("indice", "correction", "snr_r",
+                                                     "snr_i", "df")}
+        _close_ranging(card, cpu)
+        np.testing.assert_allclose(card["df"], cpu["df"], rtol=0, atol=0.05)
+        host = outs["cpu"][ch]
+        delay = lambda o: (o["indice"] + o["correction"]) / 3  # noqa: E731
+        np.testing.assert_allclose(delay(card), delay(host), rtol=0, atol=0.01)
+    truth = (431.4, 12.75)
+    for c, ch in enumerate(("ch1", "ch2")):
+        got = outs["cuda"][ch]
+        assert abs(np.median((got["indice"] + got["correction"]) / 3) - truth[c]) < 0.01
+
+
+def test_nint4_step_on_card_matches_cpu(cuda):
+    """``make_ranging_step(nint=4, packed=True)`` on the card against the
+    CPU at the JAX package's adversarial fractions (``df_fixed = 0``):
+    the CPU's bounds, and the card's error under 3e-4 sample, the JAX
+    package's 60-ps bound at 5 MS/s (the same 2 samples per chip here)."""
+    from amaranth_twstft_tpu_torch.ops import boundary
+    from amaranth_twstft_tpu_torch.ops.lfsr import prn_chips
+    from amaranth_twstft_tpu_torch.ops.prn import chips_to_pm1, interp_code, upsample_zoh
+
+    code64 = chips_to_pm1(upsample_zoh(prn_chips(10, 9, 1000), 2), np.float64)
+    spec = np.fft.fft(code64)
+    L, r = len(code64), 9
+    k = np.fft.fftfreq(L)
+    fracs = np.array([0.1, 0.25, 0.37, 0.5, 0.62, 0.83])
+    frames = np.empty((len(fracs), L, 2), np.float32)
+    for i, fr in enumerate(fracs):
+        s = np.fft.ifft(spec * np.exp(-2j * np.pi * k * (123 + fr)))
+        frames[i, :, 0], frames[i, :, 1] = 3000 * s.real, 3000 * s.imag
+    rows = {}
+    for dev in ("cpu", cuda):
+        step = boundary.make_ranging_step(
+            np.conj(spec).astype(np.complex64),
+            interp_code(code64.astype(np.float32), r).astype(np.float32),
+            np.ones(L, bool), 1e5, nint=4, packed=True, device=dev)
+        out = step(torch.from_numpy(frames).to(dev),
+                   df_fixed=torch.zeros(len(fracs), device=dev))
+        res = boundary.to_epoch_result(boundary.unpack_outputs(out.cpu().numpy()))
+        rows[str(dev)] = {f: getattr(res, f) for f in
+                          ("indice", "correction", "snr_r", "snr_i")}
+    _close_ranging(rows["cuda"], rows["cpu"])
+    got = (rows["cuda"]["indice"].astype(np.float64) + rows["cuda"]["correction"]) / r
+    assert np.abs(got - (123 + fracs)).max() < 3e-4
+
+
 def test_pipeline_on_card_matches_process_file(cuda, tmp_path):
     """The overlapped pipeline (pinned buffers, copy stream, packed
     fetch) against goranging.process_file on the card, over 4 s with a
