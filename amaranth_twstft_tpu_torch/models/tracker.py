@@ -106,9 +106,10 @@ def pack_int2_ri(bufs: np.ndarray) -> tuple[np.ndarray, float]:
     (levels +-1, +-3 in units of the threshold T ~ sigma), four codes
     (two complex samples) per uint8 byte.
 
-    As in the JAX package, sigma is taken over ALL components — in
-    real-input mode that includes the all-zero imaginary column (kept so
-    the port matches; ROADMAP Queue 3)."""
+    ``BankedReceiver(transfer="int2")`` uploads these bytes with ``T`` as
+    the decode scale.  As in the JAX package, sigma is taken over ALL
+    components — in real-input mode that includes the all-zero imaginary
+    column (kept so the port matches; ROADMAP Queue 3)."""
     sigma = float(np.std(bufs))
     t = sigma if sigma > 0 else 1.0
     sign = (bufs > 0).astype(np.uint8)
@@ -608,7 +609,12 @@ class BankedReceiver:
 
     ``transfer`` picks the H2D sample format: ``"auto"`` (f16 when the
     samples fit its range, else f32), ``"f16"``, ``"f32"``, ``"int8"``,
-    ``"int4"`` (nibble-packed) or ``"int2"`` (sign/magnitude).  Drive
+    ``"int4"`` (nibble-packed, a quarter of f16's bytes) or ``"int2"``
+    (:func:`pack_int2_ri`'s sign/magnitude bytes, an eighth of f16's;
+    it needs an even ``fs + nobs``).  The JAX package's receiver accepts
+    ``"int2"`` but uploads float32 (its ``_pack_second`` has no int2
+    branch); the port ships the format that was asked for, so an int2
+    bank differs from the JAX package's by the quantization.  Drive
     seconds through :meth:`run_stream` to prefetch the next upload.
 
     ``mesh`` (a ``parallel/mesh.RankMesh``) lays the channel axis across
@@ -713,6 +719,14 @@ class BankedReceiver:
 
     def _init_bank(self, built: list[Channel]) -> None:
         self.bank = build_bank(built, self.fs)
+        if self.transfer == "int2" and (int(self.fs) + self.bank.nobs) % 2:
+            # the decode yields 2*ceil(S/2) rows; every geometry in use has
+            # an even S = fs + nobs, and an odd one would need a trim that
+            # the device steps cannot see
+            raise ValueError(
+                f"transfer='int2' packs two samples per byte and needs an even "
+                f"second buffer, but S = fs + nobs = {int(self.fs) + self.bank.nobs}"
+            )
         self.channels = built
         self.states = [TrackState(fc=c.cfg.fc_init_hz) for c in built]
         self._phys_names = sorted({c.cfg.physical for c in built})
@@ -833,7 +847,11 @@ class BankedReceiver:
         peak = float(np.max(np.abs(bufs)))
         scale = None
         t = self.transfer
-        if t == "int4":
+        if t == "int2":
+            # two complex samples per byte; S is even (checked in _init_bank)
+            packed, s = pack_int2_ri(bufs)
+            scale = np.float32(s)
+        elif t == "int4":
             packed, s = pack_int4_ri(bufs)
             scale = np.float32(s)
         elif t == "int8":

@@ -76,12 +76,20 @@ and elementwise torch):
     the truth, a non-empty ``moved`` and the median tracked delay within
     0.01 sample of the truth folded by the re-seek;
 12. holds the card against the port on the CPU on a 4-s prefix of the
-    first capture (no hunt skip, the resident path on both): df and
-    ``moved`` identical, delays within 1e-4 sample;
+    first capture (no hunt skip), on the resident path and on the
+    per-call ``transfer="f32"`` path: df and ``moved`` identical, delays
+    within 1e-4 sample;
 13. prints each file's end-to-end claudio IQ MS/s (cold or warm cache),
     its layer times and, over one traced warm file, the card's busy
     share;
-14. times the block step's functions at production shapes;
+14. times the block step's functions at production shapes, then runs the
+    per-call ``transfer="f32"`` path on the last capture (LTFB's remote):
+    every block's df within 0.5 Hz, a non-empty ``moved``, the median
+    delay within 0.01 sample of the folded truth, and against the
+    resident int8 run of the verb df and ``moved`` identical and delays
+    within 1e-3 sample (the resident path reads int8 samples: the CPU
+    tests' resident-vs-float bound; the f32 path against the CPU is held
+    to 1e-4 in step 12); prints its IQ MS/s beside the resident run's;
 15. runs ``go1s`` on the two directories and checks one solved session,
     the ``.1s``/``.1sc`` products and ``res_mean_ns`` within 1 ns of the
     folded truths, then ``campaign`` on its summary.
@@ -192,11 +200,50 @@ P1. writes the JAX package's on-chip parity capture (50 fractional-delay
     delays against a float64 oracle (the port's complex128 correlator on
     the CPU) at p99 under 8 / 36 / 54 / 8 ps, printing p50, p99 and max;
 P2. runs ``make_ranging_step(nint=4, packed=True)`` at the fractions
-    0.1-0.83 with df 0: the largest error under 60 ps.
+    0.1-0.83 with df 0: the largest error under 60 ps;
+P3. runs the df pre-pass (``per_file_df_ri``) on the parity capture's
+    decimated channel 1 packed as float32, int8 and int16
+    (``pipeline._pack_prepass``): int8 within two squaring bins + 1e-6 Hz
+    of float32, int16 within 1e-6 Hz.
+
+The DLL/PLL receiver's modes (after the bank on the mesh, on the main
+capture and on captures of their own; 4 s each, checked at second 3
+within 0.5 Hz and a quarter sample of the truths; "against the CPU" is
+step 18's check over the CPU's first 3 s, the first with reports: the
+same rows, ``cnt`` identical, fc within 1e-3 Hz, gd within 0.01 ns, the
+CPU's ``rxcomplex.log`` lines the card's first lines):
+
+D1. runs the main path's 120 channels through ``run_stream`` with
+    ``transfer`` int8, int4, int2 and f32: every channel on its truth;
+    int4 and int2 also with the prefetch off (the same bits: reports,
+    log, states); prints each format's bytes uploaded per second, tracked
+    channel-s/s and worst errors;
+D2. writes an ``sdr.param`` with ``S`` rows over a capture of 8
+    channels (per input two at amplitude 1000 and, on the ``S`` rows, two
+    at 110; noise 300): ``dllpll`` with every channel on its truth and each
+    SIC channel's code lock (PRN id + 50) in ``rxcomplex.log``, against the
+    CPU; then the same rows marked ``N`` (recorded, not gated);
+D3. ``dllpll --real`` on 8 channels whose real samples sit on the I
+    columns, on a carrier at fs/5: the truths, against the CPU;
+D4. an ``sdr.param`` with 2500 and 1000 kcps rows (L = 200 000 and
+    500 000; 8 channels each): two geometry groups, rows in ``sdr.param``'s
+    order, the truths, against the CPU; the window-form kernel at the
+    1000-kcps launch shape against its plain version (``check_kernel``)
+    and timed beside its bytes floor;
+D5. ``dllpll --follow --idle-timeout 2`` on a file a writer thread grows
+    from the main capture one second per second: the printed rows and
+    log equal those of a run on the finished file; prints each second's
+    lag from its append to its reports;
+D6. ``reload_params`` after second 2 on a fresh int8 receiver, changing
+    one row's fc and another's SNR gate: it returns those rows, the other
+    channels' states after second 3 equal D1's int8 run bit for bit, and
+    the changed rows re-acquire and report on their truths at second 5.
 
 It prints the card's name and power limit (``nvidia-smi``), a line of
-numbers per slice (``{"ranging": ...}``, ``{"batch": ...}`` and
-``{"parity": ...}`` among them), one ``{"kernels": [...]}`` line, and as
+numbers per slice (``{"ranging": ...}``, ``{"batch": ...}``,
+``{"parity": ...}`` and ``{"dllpll_modes": ...}`` among them), one
+``{"kernels": [...]}`` line (the window form's launches on phase D's runs
+among them), and as
 its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch files go to the git-ignored ``amaranth_twstft_tpu_torch/build/``.
@@ -217,6 +264,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -253,7 +301,11 @@ TW_REMOTE_AMPLITUDE = 110.0
 TW_NOISE = 300.0
 TW_DELAY_TOL = 0.01  # samples, median tracked delay vs folded truth
 TW_DF_TOL = 0.5  # Hz, every block's df
-TW_CPU_DELAY_TOL = 1e-4  # samples, card vs CPU on the resident path
+TW_CPU_DELAY_TOL = 1e-4  # samples, card vs CPU on the same path
+# samples: the resident int8 path against a float path on the same capture
+# (tests/test_torch_claudio.py's bound for resident int8 vs complex128): the
+# two read other samples, since int8 adds ~1.4e-4 of the noise power
+TW_RESIDENT_DELAY_TOL = 1e-3
 TW_RES_TOL_NS = 1.0  # go1s res_mean vs the folded truths
 # the host receiver's capture: production geometry, 4 emissions per input
 # (8 channels) over 5 s; Dopplers on a 600-Hz grid, so that on each input
@@ -285,6 +337,17 @@ NINT4_BOUND_PS = 60.0
 # the staged matmul FFT's shapes (a GoRanging batch of 50 codes, one 2-s
 # claudio block) and the CUDA-event repetitions of each
 MX_SHAPES = (((50, 200_000), 10), ((1, 10**7), 5))
+# phase D: the DLL/PLL receiver's modes at production geometry
+D_SECONDS = 4  # each mode's run (second 3 checked against the truths)
+D_CPU_SECONDS = 3  # the CPU's run: second 2 is the first with reports
+D_TRANSFERS = ("int8", "int4", "int2", "f32")  # the main path gives f16's
+D_RELOAD_ROWS = (5, 77)  # D6: fc changed, SNR gate changed
+# D2-D4 synthesize 8 or 16 channels with Dopplers within +-620 Hz and
+# acquire over +-800 Hz (fewer CAF hypotheses for the CPU's run)
+D_DOP_SPAN = 600.0
+D_FRANGE = 800.0
+D_CARRIER_HZ = FS / 5  # D3's real-sample carrier
+D_SLOW_CHIP_RATE = 1e6  # D4's second geometry: L = 500 000, 10 codes per second
 
 
 def log(msg: str) -> None:
@@ -306,79 +369,127 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+class Truth(NamedTuple):
+    """One injected emission: Doppler (Hz, a real-mode carrier included),
+    code delay (samples), its m-sequence taps, chip rate, and whether its
+    ``sdr.param`` row is a SIC row."""
+
+    dop: float
+    delay: float
+    taps: int
+    chip_rate: float = CHIP_RATE
+    sic: bool = False
+
+
+class Emissions(NamedTuple):
+    """A group of emissions per input: count, chip rate, amplitude (int16
+    units) and whether their rows are SIC rows."""
+
+    n_per_input: int
+    chip_rate: float = CHIP_RATE
+    amplitude: float = AMPLITUDE
+    sic: bool = False
+
+
+def code_samples(chip_rate: float) -> int:
+    return CODE_LEN * int(FS // chip_rate)
+
+
 def synthesize(dev, seed: int, taps: list[int], path: str,
                n_per_input: int = N_PER_INPUT, n_seconds: int = N_SECONDS,
-               dop_grid: float = 100.0) -> dict:
-    """Write the two-input capture (``n_per_input`` emissions per input,
-    ``n_seconds`` plus one code, Dopplers on a ``dop_grid``-Hz grid within
-    +-3 kHz, distinct per input, plus a fractional offset within +-20 Hz);
-    return the injected truths."""
+               dop_grid: float = 100.0, groups: list[Emissions] | None = None,
+               dop_span: float = 3000.0, carrier_hz: float = 0.0,
+               real: bool = False) -> dict:
+    """Write the two-input capture (``n_per_input`` emissions per input, or
+    ``groups`` of them, ``n_seconds`` plus one code, Dopplers on a
+    ``dop_grid``-Hz grid within +-``dop_span``, distinct per input, plus a
+    fractional offset within +-20 Hz, and ``carrier_hz`` above it); with
+    ``real`` the I columns carry the real signal plus noise and the Q
+    columns zeros.  Returns the injected truths."""
     from amaranth_twstft_tpu_torch.ops.lfsr import prn_chips_batch
 
-    nobs = CODE_LEN * int(FS // CHIP_RATE)
+    groups = groups or [Emissions(n_per_input)]
+    n_in = sum(g.n_per_input for g in groups)
     rng = np.random.default_rng(seed)
-    chips = prn_chips_batch(BIT_LEN, np.asarray(taps, np.uint64), CODE_LEN)
+    chips = prn_chips_batch(BIT_LEN, np.asarray(taps[: 2 * n_in], np.uint64), CODE_LEN)
     fs = int(FS)
-    n_total = n_seconds * fs + nobs
+    n_total = n_seconds * fs + max(code_samples(g.chip_rate) for g in groups)
     truths = {}
     gen = torch.Generator(device=dev).manual_seed(seed)
-    k = torch.fft.fftfreq(nobs, device=dev, dtype=torch.float64)
     t = torch.arange(fs, device=dev, dtype=torch.float64)
     frame = np.empty((n_total, 4), np.int16)
     for inp, phys in enumerate("AB"):
-        rows = list(range(inp * n_per_input, (inp + 1) * n_per_input))
+        em = [g for g in groups for _ in range(g.n_per_input)]
+        nobs = np.array([code_samples(g.chip_rate) for g in em])
         # Dopplers on a grid (distinct per input, so the squaring lines at
         # 2f stay apart) plus a fractional offset
-        dops = (rng.choice(np.arange(-3000.0, 3001.0, dop_grid), n_per_input,
+        dops = (rng.choice(np.arange(-dop_span, dop_span + 1.0, dop_grid), n_in,
                            replace=False)
-                + rng.uniform(-20.0, 20.0, n_per_input))
+                + rng.uniform(-20.0, 20.0, n_in))
         # whole-sample delays plus a fraction within +-MAX_FRAC: at 2
         # samples per chip the HRC discriminator (rxcomplex.cpp:649-659,
         # kept as the JAX package has it) overshoots the fraction more and
         # more as it nears one half: within a quarter sample at 0.3,
         # beyond it at 0.45
         # (tests/test_torch_tracker.py::test_fractional_delay_matches_jax)
-        delays = (rng.integers(0, nobs, n_per_input)
-                  + rng.uniform(-MAX_FRAC, MAX_FRAC, n_per_input)) % nobs
-        phases = rng.uniform(0.0, 1.0, n_per_input)
-        code = torch.from_numpy(
-            np.repeat(chips[rows].astype(np.float64) * 2 - 1, 2, axis=1)
-        ).to(dev)
-        ramp = torch.exp(-2j * math.pi * k[None, :]
-                         * torch.from_numpy(delays).to(dev)[:, None])
-        wave = torch.fft.ifft(torch.fft.fft(code, dim=-1) * ramp, dim=-1)
+        whole = (rng.integers(0, nobs[0], n_in) if (nobs == nobs[0]).all()
+                 else rng.integers(0, nobs))
+        delays = (whole + rng.uniform(-MAX_FRAC, MAX_FRAC, n_in)) % nobs
+        phases = rng.uniform(0.0, 1.0, n_in)
         sig = torch.zeros(n_total, dtype=torch.complex128, device=dev)
-        for s0 in range(0, n_total, fs):
-            n = min(fs, n_total - s0)
-            tt = t[:n] + s0
-            idx = torch.remainder(tt.long(), nobs)
-            for j in range(n_per_input):
-                ph = torch.remainder(dops[j] * tt / FS + phases[j], 1.0)
-                sig[s0 : s0 + n] += (AMPLITUDE * wave[j, idx]
-                                     * torch.exp(2j * math.pi * ph))
+        j0 = 0
+        for g in groups:
+            js = range(j0, j0 + g.n_per_input)
+            rows = [inp * n_in + j for j in js]
+            L = code_samples(g.chip_rate)
+            k = torch.fft.fftfreq(L, device=dev, dtype=torch.float64)
+            code = torch.from_numpy(
+                np.repeat(chips[rows].astype(np.float64) * 2 - 1, L // CODE_LEN, axis=1)
+            ).to(dev)
+            ramp = torch.exp(-2j * math.pi * k[None, :]
+                             * torch.from_numpy(delays[list(js)]).to(dev)[:, None])
+            wave = torch.fft.ifft(torch.fft.fft(code, dim=-1) * ramp, dim=-1)
+            for s0 in range(0, n_total, fs):
+                n = min(fs, n_total - s0)
+                tt = t[:n] + s0
+                idx = torch.remainder(tt.long(), L)
+                for w, j in enumerate(js):
+                    ph = torch.remainder((carrier_hz + dops[j]) * tt / FS + phases[j], 1.0)
+                    sig[s0 : s0 + n] += (g.amplitude * wave[w, idx]
+                                         * torch.exp(2j * math.pi * ph))
+            for j, r in zip(js, rows):
+                truths[(phys, 100 + r)] = Truth(float(carrier_hz + dops[j]),
+                                                float(delays[j]), taps[r],
+                                                g.chip_rate, g.sic)
+            j0 += g.n_per_input
+            del wave, code, ramp
         noise = torch.randn(2, n_total, generator=gen, device=dev,
                             dtype=torch.float64) * NOISE_SIGMA
-        iq = torch.stack([sig.real + noise[0], sig.imag + noise[1]], dim=-1)
+        iq = torch.stack([sig.real + noise[0],
+                          torch.zeros_like(sig.real) if real else sig.imag + noise[1]],
+                         dim=-1)
         iq = torch.clamp(torch.round(iq), -32768, 32767).to(torch.int16)
         frame[:, 2 * inp : 2 * inp + 2] = iq.cpu().numpy()
-        for j, r in enumerate(rows):
-            truths[(phys, 100 + r)] = (float(dops[j]), float(delays[j]), taps[r])
-        del sig, wave, code, ramp, noise, iq
+        del sig, noise, iq
     frame.tofile(path)
     return truths
 
 
-def write_param(param: str, truths: dict) -> tuple[str, str]:
+def write_param(param: str, truths: dict, fc_hz: float = 0.0, frange: float = 4000.0,
+                sic: bool = True) -> tuple[str, str]:
     """The ``sdr.param`` of every emission of ``truths`` (acquisition over
-    +-4 kHz from 0 Hz in 100 Hz steps, 7 dB gate) and the ``--taps-map``
-    that gives each PRN its code."""
-    kcps = CHIP_RATE / 1e3
+    +-``frange`` Hz from ``fc_hz`` in 100 Hz steps, 7 dB gate; with
+    ``sic``, the truths' SIC rows as ``S``) and the ``--taps-map`` that
+    gives each PRN its code."""
     chans = sorted(truths, key=lambda k: k[1])
     with open(param, "w") as f:
         f.write("# ch sic prn fc kcps flt frange fstep snr\n")
         for phys, prn in chans:
-            f.write(f"{phys} N {prn} 0 {kcps:g} {kcps:g} 4000 100 7\n")
-    return param, ",".join(f"{prn}={truths[(phys, prn)][2]}" for phys, prn in chans)
+            t = truths[(phys, prn)]
+            kcps = t.chip_rate / 1e3
+            f.write(f"{phys} {'S' if sic and t.sic else 'N'} {prn} {fc_hz:.1f} "
+                    f"{kcps:g} {kcps:g} {frange:g} 100 7\n")
+    return param, ",".join(f"{prn}={truths[(phys, prn)].taps}" for phys, prn in chans)
 
 
 @contextlib.contextmanager
@@ -463,12 +574,9 @@ def run_dllpll(work: str, truths: dict, cap: str, dev, kept_reports=None):
     layers under it (``times``: sc16 read, host pack, pack + upload start,
     the bank's ``process_second``, and its device steps); appends each
     second's reports as tuples to ``kept_reports`` when given."""
-    from amaranth_twstft_tpu_torch import cli
     from amaranth_twstft_tpu_torch.models import tracker
     from amaranth_twstft_tpu_torch.utils import io as sc16
 
-    param, taps_map = write_param(os.path.join(work, "sdr.param"), truths)
-    out_dir = os.path.join(work, "out")
     times = {k: [] for k in ("read", "pack", "upload", "bank", "track_step",
                              "acquire_step")}
     e2e_walls: list[float] = []
@@ -503,25 +611,15 @@ def run_dllpll(work: str, truths: dict, cap: str, dev, kept_reports=None):
         (tracker, "banked_track_step", times["track_step"], True),
         (tracker, "banked_acquire_step", times["acquire_step"], True),
     ]
-    stdout = io.StringIO()
     rx_cls.run_stream = timed_stream
     tracker.lag_bank_windows = keep_inputs
     try:
-        with timing_hooks(hooks), contextlib.redirect_stdout(stdout), \
-                contextlib.redirect_stderr(io.StringIO()):
-            rc = cli.main(["dllpll", cap, "--param", param, "--out-dir", out_dir,
-                           "--fs", repr(FS), "--bitlen", str(BIT_LEN),
-                           "--code-len", str(CODE_LEN), "--taps-map", taps_map,
-                           "--device", str(dev)])
+        with timing_hooks(hooks):
+            run = dllpll_verb(work, "sdr", cap, truths, dev)
     finally:
         rx_cls.run_stream = orig_stream
         tracker.lag_bank_windows = orig_lag_bank
-    if rc != 0:
-        raise RuntimeError(f"dllpll exited {rc}")
-    reports = parse_rows(stdout.getvalue())
-    with open(os.path.join(out_dir, "rxcomplex.log")) as f:
-        rxlog = f.read()
-    return reports, times, e2e_walls, rxlog, last_lag_bank
+    return run["rows"], times, e2e_walls, "\n".join(run["log"]), last_lag_bank
 
 
 def parse_rows(text: str) -> dict:
@@ -600,18 +698,21 @@ def check_kernel(lb_inputs: dict):
 
 def check_truths(reports: dict, truths: dict,
                  second: int = CHECK_SECOND) -> tuple[int, int, float, float]:
-    nobs = CODE_LEN * int(FS // CHIP_RATE)
+    """At ``second``: how many channels report, how many of them within 0.5
+    Hz and a quarter sample of their truths, and the worst errors (Hz,
+    samples)."""
     ns_per_sample = 1e9 / FS
-    period_ns = nobs * ns_per_sample
     locked = ok = 0
     worst_df = worst_gd = 0.0
-    for (phys, prn), (dop, delay, _) in truths.items():
+    for (phys, prn), truth in truths.items():
         rep = reports.get((second, phys, prn))
         if rep is None:
             continue
         locked += 1
         fc, _, gd = rep
-        err = (gd - delay * ns_per_sample) % period_ns
+        dop = truth.dop
+        period_ns = code_samples(truth.chip_rate) * ns_per_sample
+        err = (gd - truth.delay * ns_per_sample) % period_ns
         err = min(err, period_ns - err)
         worst_df = max(worst_df, abs(fc - dop))
         worst_gd = max(worst_gd, err / ns_per_sample)
@@ -1127,6 +1228,7 @@ def twoway_phase(work: str, dev, seed: int, lt_taps: int, keep: dict | None = No
                 + (f" -> busy share {busy / 1e3 / traced_wall:.4f}" if busy else ""))
             files[f"{site}{ch}"].update(busy_ms=busy, traced_wall_s=traced_wall)
             last = (cap, codes[taps])
+            resident = (out, delay, dop, msps)
         else:
             if keep is not None and site == "OP":
                 kept = os.path.join(keep["dirs"][ch], os.path.basename(cap))
@@ -1181,29 +1283,65 @@ def twoway_phase(work: str, dev, seed: int, lt_taps: int, keep: dict | None = No
     log(f"  block step shapes: block {block} samples, {len(offsets)} windows "
         f"padded to {res.pad_to} x L = {L}")
     del x, prev, q8, wins, dc, fcode_ri, mask_d, raw_d
+
+    # -- 14b. the per-call transfer="f32" path on the same capture -----------
+    out_f32 = os.path.join(root, "f32")
+    os.makedirs(out_f32, exist_ok=True)
+    res_out, delay, dop, res_msps = resident
+    t0 = time.perf_counter()
+    f32 = claudio.process_file(cap, code, cfg, proc, StationConfig(op=False), remote=True,
+                               ranging=False, out_dir=out_f32, device=dev, transfer="f32")
+    torch.cuda.synchronize()
+    f32_wall = time.perf_counter() - t0
+    f32_msps = sc16.n_samples_sc16(cap, channels=1) / f32_wall / 1e6
+    dl = tracked_delays(f32)
+    f32_d_err = float(np.median(dl) - folded_delay(delay))
+    f32_df_err = float(np.abs(f32["df"] - dop).max())
+    if len(dl) != len(tracked_delays(res_out)):
+        raise RuntimeError(f"claudio transfer='f32': {len(dl)} codes, resident "
+                           f"{len(tracked_delays(res_out))}")
+    diff = dl - tracked_delays(res_out)
+    f32_vs, f32_rms = float(np.abs(diff).max()), float(np.sqrt(np.mean(diff ** 2)))
+    log(f"claudio transfer='f32' on LTFB_1: process_file {f32_wall:.3f} s -> "
+        f"{f32_msps:.2f} IQ MS/s (the resident int8 verb run: {res_msps:.2f}); median "
+        f"delay err {f32_d_err:+.5f} sample; max |df - truth| {f32_df_err:.4f} Hz; moved "
+        f"{f32['moved']}; against the resident run: df identical "
+        f"{np.array_equal(f32['df'], res_out['df'])}, moved identical "
+        f"{f32['moved'] == res_out['moved']}, delay diff max {f32_vs:.2e} rms "
+        f"{f32_rms:.2e} sample over {len(dl)} codes (bound {TW_RESIDENT_DELAY_TOL:g}: "
+        f"int8 against float samples; the f32 path against the CPU is step 12's)")
+    if not f32["found"] or not f32["moved"] or abs(f32_d_err) > TW_DELAY_TOL \
+            or f32_df_err > TW_DF_TOL:
+        raise RuntimeError("claudio transfer='f32': truth check failed")
+    if not np.array_equal(f32["df"], res_out["df"]) or f32["moved"] != res_out["moved"] \
+            or f32_vs > TW_RESIDENT_DELAY_TOL:
+        raise RuntimeError("claudio transfer='f32' differs from the resident run")
     os.remove(cap)
 
-    # -- 12. the card against the CPU on a 4-s prefix ------------------------
+    # -- 12. the card against the CPU on a 4-s prefix, both paths ------------
     pre_proc = ProcessingConfig(conjugate_data=True, skip_seconds=0.0)
-    runs = {}
-    for name, d in (("card", dev), ("cpu", "cpu")):
-        od = os.path.join(root, f"prefix_{name}")
-        os.makedirs(od, exist_ok=True)
-        t0 = time.perf_counter()
-        runs[name] = claudio.process_file(
-            prefix[0], prefix[1], cfg, pre_proc, StationConfig(op=True),
-            ranging=False, out_dir=od, device=d, transfer="int8")
-        log(f"4-s prefix on the {name}: {time.perf_counter() - t0:.2f} s")
-    card, cpu = runs["card"], runs["cpu"]
-    pre_err = float(np.abs(tracked_delays(card) - tracked_delays(cpu)).max())
-    if not np.array_equal(card["df"], cpu["df"]) or card["moved"] != cpu["moved"] \
-            or pre_err > TW_CPU_DELAY_TOL:
-        raise RuntimeError(f"claudio card vs CPU: df {card['df'][:1]} / "
-                           f"{cpu['df'][:1]}, moved {card['moved']} / {cpu['moved']}, "
-                           f"delay {pre_err}")
-    log(f"claudio card vs the port on the CPU (4-s prefix, resident int8 path): "
-        f"df identical, moved identical, max delay diff {pre_err:.2e} sample "
-        f"(tolerance {TW_CPU_DELAY_TOL:g})")
+    pre_err = {}
+    for transfer in ("int8", "f32"):
+        runs = {}
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            od = os.path.join(root, f"prefix_{transfer}_{name}")
+            os.makedirs(od, exist_ok=True)
+            t0 = time.perf_counter()
+            runs[name] = claudio.process_file(
+                prefix[0], prefix[1], cfg, pre_proc, StationConfig(op=True),
+                ranging=False, out_dir=od, device=d, transfer=transfer)
+            log(f"4-s prefix, transfer={transfer!r}, on the {name}: "
+                f"{time.perf_counter() - t0:.2f} s")
+        card, cpu = runs["card"], runs["cpu"]
+        pre_err[transfer] = float(np.abs(tracked_delays(card) - tracked_delays(cpu)).max())
+        if not np.array_equal(card["df"], cpu["df"]) or card["moved"] != cpu["moved"] \
+                or pre_err[transfer] > TW_CPU_DELAY_TOL:
+            raise RuntimeError(f"claudio {transfer} card vs CPU: df {card['df'][:1]} / "
+                               f"{cpu['df'][:1]}, moved {card['moved']} / {cpu['moved']}, "
+                               f"delay {pre_err[transfer]}")
+        log(f"claudio card vs the port on the CPU (4-s prefix, transfer={transfer!r}): "
+            f"df identical, moved identical, max delay diff {pre_err[transfer]:.2e} "
+            f"sample (tolerance {TW_CPU_DELAY_TOL:g})")
     os.remove(prefix[0])
 
     # -- 15. go1s and campaign ----------------------------------------------
@@ -1237,7 +1375,12 @@ def twoway_phase(work: str, dev, seed: int, lt_taps: int, keep: dict | None = No
     log(f"campaign: products {sorted(os.listdir(out_dir))}")
     return {
         "seconds": TW_SECONDS, "files": files, "parts": parts,
-        "prefix_max_delay_diff_samples": pre_err, "go1s_wall_s": go1s_wall,
+        "prefix_max_delay_diff_samples": pre_err["int8"], "go1s_wall_s": go1s_wall,
+        "f32": {"wall_s": f32_wall, "iq_msps": f32_msps, "resident_iq_msps": res_msps,
+                "delay_err_samples": f32_d_err, "df_err_hz": f32_df_err,
+                "vs_resident_max_delay_diff": f32_vs,
+                "vs_resident_rms_delay_diff": f32_rms,
+                "prefix_vs_cpu_max_delay_diff": pre_err["f32"]},
         "res_mean_ns": rows[0]["res_mean_ns"], "truth_ns": truth_ns,
         "res_err_ns": res_err,
     }
@@ -1382,12 +1525,7 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
 
     # -- 17. truths, the subscriber, the launches -------------------------
     last_second = HOST_SECONDS - 1
-    locked, ok, worst_df, worst_gd = check_truths(reps, truths, last_second)
-    log(f"second {last_second}: {locked} of {len(truths)} channels report, {ok} within "
-        f"0.5 Hz and 0.25 sample (worst |df| {worst_df:.4f} Hz, worst |gd| "
-        f"{worst_gd:.4f} sample)")
-    if locked != len(truths) or ok != locked:
-        raise RuntimeError(f"host truth check failed: {locked} report, {ok} ok")
+    gate = truth_gate("dllpll --host", reps, truths, last_second)
     track = io.StringIO()
     with contextlib.redirect_stdout(track):
         for _, m in msgs:
@@ -1405,12 +1543,8 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
         f"launches of either form)")
 
     # -- 18. the card against the port on the CPU, first seconds ----------
-    with open(param) as f:
-        chans = [dataclasses.replace(c, bit_len=BIT_LEN, code_len=CODE_LEN,
-                                     taps=truths[(c.physical, c.prn_id)][2])
-                 for c in dllpll.parse_sdr_param(f.read())]
     t0 = time.perf_counter()
-    rx_cpu = dllpll.Receiver(chans, fs=FS, device="cpu")
+    rx_cpu = dllpll.Receiver(param_channels(param, truths), fs=FS, device="cpu")
     cpu_reps = [rx_cpu.process_second(sec)
                 for sec in sc16_seconds(cap, HOST_CPU_SECONDS, nobs)]
     t_cpu = time.perf_counter() - t0
@@ -1435,15 +1569,12 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
         f"diff {worst_gd_ns:.2e} ns")
 
     # -- 19. the banked receiver on the same capture -----------------------
-    stdout = io.StringIO()
-    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(io.StringIO()):
-        rc = cli.main(["dllpll", *common, "--device", str(dev)])
-    bank = parse_rows(stdout.getvalue())
+    bank = dllpll_verb(work, "host_bank", cap, truths, dev)["rows"]
     worst_bank_df = worst_bank_gd = 0.0
     for (phys, prn) in truths:
         h, b = reps[(last_second, phys, prn)], bank.get((last_second, phys, prn))
-        if rc != 0 or b is None:
-            raise RuntimeError(f"banked dllpll: rc {rc}, no row for {prn}")
+        if b is None:
+            raise RuntimeError(f"banked dllpll: no row for {prn}")
         worst_bank_df = max(worst_bank_df, abs(h[0] - b[0]))
         worst_bank_gd = max(worst_bank_gd, abs(h[2] - b[2]) * FS / 1e9)
     if worst_bank_df > 0.5 or worst_bank_gd > 0.25:
@@ -1533,8 +1664,7 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
         "host": {
             "seconds": HOST_SECONDS, "channels": len(truths), "wall_s": wall,
             "process_second_wall_s": walls, "caf_search_ms": caf_ms,
-            "worst_df_hz": worst_df, "worst_gd_samples": worst_gd,
-            "cpu_max_fc_diff_hz": worst_fc, "cpu_max_gd_diff_ns": worst_gd_ns,
+            **gate, "cpu_max_fc_diff_hz": worst_fc, "cpu_max_gd_diff_ns": worst_gd_ns,
             "bank_max_fc_diff_hz": worst_bank_df,
             "bank_max_gd_diff_samples": worst_bank_gd, "track_messages": len(rows),
             "caf": caf_parts,
@@ -2576,6 +2706,472 @@ def batch_phase(root: str, dev, gr_code: str, kept: dict) -> dict:
     return out
 
 
+class StampedOut(io.StringIO):
+    """A stdout that keeps the monotonic time at which each line ended."""
+
+    def __init__(self):
+        super().__init__()
+        self.times: list[float] = []
+
+    def write(self, text):
+        n = super().write(text)
+        self.times.extend([time.monotonic()] * text.count("\n"))
+        return n
+
+
+def dllpll_verb(work: str, name: str, cap: str, truths: dict, dev, *extra: str,
+                fc_hz: float = 0.0, frange: float = 4000.0, sic: bool = True,
+                stream_times: list | None = None) -> dict:
+    """``twstft-torch dllpll`` in-process on ``cap`` with ``truths``'
+    ``sdr.param`` and a fresh ``--out-dir``; raises unless it exits 0.
+    With ``stream_times``, the monotonic time at which ``run_stream``
+    yields each second is appended to it.  Returns the printed rows
+    (:func:`parse_rows`), the printed lines with their times, the
+    ``rxcomplex.log`` lines, the standard error and the wall time."""
+    from amaranth_twstft_tpu_torch import cli
+    from amaranth_twstft_tpu_torch.models import tracker
+
+    param, taps_map = write_param(os.path.join(work, f"{name}.param"), truths, fc_hz,
+                                  frange, sic)
+    out_dir = os.path.join(work, f"{name}_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    stdout, stderr = StampedOut(), io.StringIO()
+    orig_stream = tracker.BankedReceiver.run_stream
+
+    def stamped(self, *a, **kw):
+        for reports in orig_stream(self, *a, **kw):
+            stream_times.append(time.monotonic())
+            yield reports
+
+    if stream_times is not None:
+        tracker.BankedReceiver.run_stream = stamped
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+            rc = cli.main(["dllpll", cap, "--param", param, "--out-dir", out_dir,
+                           "--fs", repr(FS), "--bitlen", str(BIT_LEN), "--code-len",
+                           str(CODE_LEN), "--taps-map", taps_map, "--device", str(dev),
+                           *extra])
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tracker.BankedReceiver.run_stream = orig_stream
+    if rc != 0:
+        raise RuntimeError(f"dllpll {name} exited {rc}")
+    with open(os.path.join(out_dir, "rxcomplex.log")) as f:
+        rxlog = f.read().splitlines()
+    shutil.rmtree(out_dir)
+    lines = stdout.getvalue().splitlines()
+    printed = [(t, ln) for t, ln in zip(stdout.times, lines) if not ln.startswith("#")]
+    return {"rows": parse_rows(stdout.getvalue()), "printed": printed, "log": rxlog,
+            "stderr": stderr.getvalue(), "wall": wall}
+
+
+def card_vs_cpu(what: str, card: dict, cpu: dict) -> dict:
+    """Step 18's comparison for a dllpll run on the card against the same
+    verb on the CPU over its first seconds: the same reports, ``cnt``
+    identical, fc within HOST_CPU_FC_HZ and gd within HOST_CPU_GD_NS, and
+    the CPU's ``rxcomplex.log`` lines the card's first lines."""
+    seconds = 1 + max(k[0] for k in cpu["rows"]) if cpu["rows"] else 0
+    want = {k for k in card["rows"] if k[0] < seconds}
+    if not cpu["rows"] or want != set(cpu["rows"]):
+        raise RuntimeError(f"{what} card vs CPU: reports differ ({len(want)} / "
+                           f"{len(cpu['rows'])})")
+    worst_fc = worst_gd = 0.0
+    for k, (fc, cnt, gd) in cpu["rows"].items():
+        g = card["rows"][k]
+        if g[1] != cnt:
+            raise RuntimeError(f"{what} card vs CPU: cnt {g[1]} / {cnt} at {k}")
+        worst_fc = max(worst_fc, abs(g[0] - fc))
+        worst_gd = max(worst_gd, abs(g[2] - gd))
+    if worst_fc > HOST_CPU_FC_HZ or worst_gd > HOST_CPU_GD_NS:
+        raise RuntimeError(f"{what} card vs CPU: fc {worst_fc} Hz, gd {worst_gd} ns")
+    if card["log"][: len(cpu["log"])] != cpu["log"]:
+        raise RuntimeError(f"{what} card vs CPU: rxcomplex.log lines differ")
+    log(f"  {what} card vs the port on the CPU over the first {D_CPU_SECONDS} s "
+        f"({cpu['wall']:.1f} s on the CPU): {len(cpu['rows'])} rows, cnt identical, "
+        f"max |fc| diff {worst_fc:.2e} Hz, max |gd| diff {worst_gd:.2e} ns, the same "
+        f"{len(cpu['log'])} rxcomplex.log lines")
+    return {"rows": len(cpu["rows"]), "max_fc_diff_hz": worst_fc,
+            "max_gd_diff_ns": worst_gd, "log_lines": len(cpu["log"]),
+            "cpu_wall_s": cpu["wall"]}
+
+
+def truth_gate(what: str, rows: dict, truths: dict, second: int) -> dict:
+    """Every channel of ``truths`` reports at ``second`` within 0.5 Hz and
+    a quarter sample of its truth."""
+    locked, ok, worst_df, worst_gd = check_truths(rows, truths, second)
+    log(f"  {what}: second {second}: {locked} of {len(truths)} channels report, {ok} "
+        f"within 0.5 Hz and 0.25 sample (worst |df| {worst_df:.4f} Hz, worst |gd| "
+        f"{worst_gd:.4f} sample)")
+    if locked != len(truths) or ok != locked:
+        bad = {k: (truths[k], rows.get((second, *k))) for k in truths
+               if check_truths(rows, {k: truths[k]}, second)[1] != 1}
+        raise RuntimeError(f"{what}: {locked} of {len(truths)} report, {ok} on truth; "
+                           f"off truth (truth, report): {bad}")
+    return {"worst_df_hz": worst_df, "worst_gd_samples": worst_gd}
+
+
+def param_channels(param: str, truths: dict) -> list:
+    """The channels the dllpll verb builds from ``param`` (each PRN's taps
+    from ``truths``)."""
+    from amaranth_twstft_tpu_torch.models import dllpll
+
+    with open(param) as f:
+        return [dataclasses.replace(c, bit_len=BIT_LEN, code_len=CODE_LEN,
+                                    taps=truths[(c.physical, c.prn_id)].taps)
+                for c in dllpll.parse_sdr_param(f.read())]
+
+
+def run_bank(rx, secs: list, prefetch: bool = True, between=None) -> dict:
+    """Drive ``rx.run_stream`` over ``secs`` with the window-form launch
+    count set to 0 just before; ``between(s, rx)`` runs after second s's
+    reports.  Returns the reports as tuples, the rows (as
+    :func:`parse_rows` gives them), the wall between two seconds' reports,
+    the bytes of each upload and the launches."""
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    sizes: list[int] = []
+    dtypes: set = set()
+    upload = rx.upload_second
+
+    def counted_upload(sec):
+        pending = upload(sec)
+        sizes.append(pending.dev.numel() * pending.dev.element_size())
+        dtypes.add(str(pending.dev.dtype))
+        return pending
+
+    rx.upload_second = counted_upload
+    kept, rows, walls = [], {}, []
+    lagbank.lag_bank_kernel.launches = 0
+    try:
+        t_prev = time.perf_counter()
+        for s, reports in enumerate(rx.run_stream(iter(secs), prefetch=prefetch)):
+            walls.append(time.perf_counter() - t_prev)
+            kept.append([r and dataclasses.astuple(r) for r in reports])
+            for ch, r in zip(rx.channels, reports):
+                if r is not None:
+                    rows[(s, ch.cfg.physical, ch.cfg.prn_id)] = (r.fc_hz, r.cnt, r.gd_ns)
+            if between is not None:
+                between(s, rx)
+            t_prev = time.perf_counter()
+    finally:
+        del rx.upload_second
+    return {"kept": kept, "rows": rows, "walls": walls, "sizes": sizes,
+            "dtypes": sorted(dtypes), "launches": lagbank.lag_bank_kernel.launches}
+
+
+def d1_transfers(work: str, truths: dict, dev, secs: list) -> dict:
+    """D1 and D6: every transfer format through ``run_stream`` on the main
+    path's capture and channels, then ``reload_params`` mid-stream on the
+    int8 receiver."""
+    from amaranth_twstft_tpu_torch.models import tracker
+    from amaranth_twstft_tpu_torch.models.dllpll import TrackState
+
+    param, _ = write_param(os.path.join(work, "d1.param"), truths)
+    chans = param_channels(param, truths)
+    n_chan = len(chans)
+    t0 = time.perf_counter()
+    base = tracker.BankedReceiver(chans, fs=FS, group=8, device=dev)
+    arrays = {"wav_ext": base.bank.wav_ext, "psbb": base.bank.psbb,
+              "fcode_ri": base.bank.fcode_ri, "_buf_idx": base._buf_idx}
+    fresh_states = [dataclasses.asdict(TrackState(fc=c.fc_init_hz)) for c in chans]
+    log(f"D1 bank of {n_chan} channels built in {time.perf_counter() - t0:.1f} s")
+    del base
+
+    def fresh(transfer):
+        return tracker.BankedReceiver.from_reference(
+            chans, arrays, fresh_states, fs=FS, group=8, transfer=transfer, device=dev)
+
+    out: dict = {"formats": {}, "launches": {}}
+    last = D_SECONDS - 1
+    for transfer in D_TRANSFERS:
+        rx = fresh(transfer)
+        run = run_bank(rx, secs[:D_SECONDS])
+        steady = float(np.median(run["walls"][2:]))
+        per_s = run["sizes"][0]
+        log(f"D1 {transfer}: {per_s / 1e6:.2f} MB uploaded per second of samples "
+            f"({per_s} B, {run['dtypes']}); "
+            f"{n_chan / steady:.1f} tracked channel-s/s (median wall of seconds "
+            f"2-{last}: {steady:.4f} s; walls {[round(w, 4) for w in run['walls']]}); "
+            f"{run['launches']} window-form launches")
+        gate = truth_gate(f"D1 {transfer}", run["rows"], truths, last)
+        entry = {"bytes_per_s": per_s, "dtypes": run["dtypes"],
+                 "channel_s_per_s": n_chan / steady,
+                 "walls_s": run["walls"], **gate}
+        out["launches"][f"d1_{transfer}"] = run["launches"]
+        if transfer in ("int4", "int2"):
+            rx_np = fresh(transfer)
+            run_np = run_bank(rx_np, secs[:D_SECONDS], prefetch=False)
+            same = (run_np["kept"] == run["kept"] and rx_np.log == rx.log
+                    and [dataclasses.asdict(s) for s in rx_np.states]
+                    == [dataclasses.asdict(s) for s in rx.states])
+            if not same:
+                raise RuntimeError(f"D1 {transfer}: prefetch on and off differ")
+            log(f"  D1 {transfer}: prefetch on and off give the same bits (reports, "
+                f"log, states)")
+            entry["prefetch_identical"] = True
+            out["launches"][f"d1_{transfer}_no_prefetch"] = run_np["launches"]
+        if transfer == "int8":
+            int8_states = [dataclasses.asdict(s) for s in rx.states]
+        out["formats"][transfer] = entry
+
+    # -- D6. reload_params mid-stream on the int8 receiver ---------------------
+    rows_txt = [ln for ln in open(param).read().splitlines() if not ln.startswith("#")]
+    f = rows_txt[D_RELOAD_ROWS[0]].split()
+    f[3] = "500.0"  # the row's fc
+    rows_txt[D_RELOAD_ROWS[0]] = " ".join(f)
+    f = rows_txt[D_RELOAD_ROWS[1]].split()
+    f[8] = "5"  # the row's SNR gate, dB
+    rows_txt[D_RELOAD_ROWS[1]] = " ".join(f)
+    text = "\n".join(rows_txt) + "\n"
+    got: dict = {}
+
+    def reload_after_two(s, rx):
+        if s == 2:
+            t = time.perf_counter()
+            got["changed"] = rx.reload_params(text)
+            got["reload_s"] = time.perf_counter() - t
+        elif s == 3:
+            got["states"] = [dataclasses.asdict(st) for st in rx.states]
+
+    rx = fresh("int8")
+    run = run_bank(rx, secs[:N_SECONDS], between=reload_after_two)
+    out["launches"]["d6_reload"] = run["launches"]
+    if got["changed"] != list(D_RELOAD_ROWS):
+        raise RuntimeError(f"D6: reload_params returned {got['changed']}")
+    kept = [i for i in range(n_chan) if i not in D_RELOAD_ROWS]
+    diff = [i for i in kept if got["states"][i] != int8_states[i]]
+    if diff:
+        raise RuntimeError(f"D6: unchanged channels {diff[:5]} differ after second 3")
+    for i in D_RELOAD_ROWS:
+        if not (got["states"][i]["is_trk"] and got["states"][i]["is_first"]):
+            raise RuntimeError(f"D6: changed row {i} did not re-acquire at second 3")
+    changed_truths = {(c.physical, c.prn_id): truths[(c.physical, c.prn_id)]
+                      for c in (chans[i] for i in D_RELOAD_ROWS)}
+    gate = truth_gate("D6 changed rows after the reload", run["rows"], changed_truths,
+                      N_SECONDS - 1)
+    gate_all = truth_gate("D6 every row", run["rows"], truths, N_SECONDS - 1)
+    log(f"D6 reload_params after second 2: returned {got['changed']} in "
+        f"{got['reload_s']:.2f} s (rows {D_RELOAD_ROWS[0]}: fc 0 -> 500 Hz, "
+        f"{D_RELOAD_ROWS[1]}: SNR gate 7 -> 5 dB); the {len(kept)} unchanged channels' "
+        f"states after second 3 equal the D1 int8 run's bit for bit; the changed rows "
+        f"re-acquired and report on their truths at second {N_SECONDS - 1}")
+    out["reload"] = {"changed": got["changed"], "reload_s": got["reload_s"],
+                     "kept_states_identical": len(kept), "changed_rows": gate,
+                     "every_row": gate_all}
+    return out
+
+
+def d2_sic(work: str, dev, seed: int, taps: list[int], launches: dict) -> dict:
+    """D2: SIC rows.  Strong emissions (the two-way loopbacks' amplitude)
+    and weak ones on ``S`` rows (the remotes' amplitude) on each input."""
+    cap = os.path.join(work, "sic.sc16")
+    truths = synthesize(dev, seed + 2, taps, cap, n_seconds=D_SECONDS, groups=[
+        Emissions(2, amplitude=TW_LOOPBACK_AMPLITUDE),
+        Emissions(2, amplitude=TW_REMOTE_AMPLITUDE, sic=True)], dop_span=D_DOP_SPAN)
+    kw = dict(frange=D_FRANGE)
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    lagbank.lag_bank_kernel.launches = 0
+    card = dllpll_verb(work, "sic", cap, truths, dev, **kw)
+    launches["d2_sic"] = lagbank.lag_bank_kernel.launches
+    gate = truth_gate("D2 SIC", card["rows"], truths, D_SECONDS - 1)
+    weak = {k: v for k, v in truths.items() if v.sic}
+    for phys, prn in weak:
+        line = f"code lock   : Ch. {phys}, PRN#{prn + 50}, count ="
+        if not any(ln.startswith(line) for ln in card["log"]):
+            raise RuntimeError(f"D2: no code lock line for SIC channel {prn} (#{prn + 50})")
+    log(f"D2 dllpll with {len(weak)} SIC rows of {len(truths)}: wall {card['wall']:.3f} s "
+        f"for {D_SECONDS} s; rxcomplex.log has each SIC channel's code lock (PRN id + "
+        f"50); {launches['d2_sic']} window-form launches")
+    cpu = dllpll_verb(work, "sic_cpu", cap, truths, "cpu", "--seconds",
+                      str(D_CPU_SECONDS), **kw)
+    vs = card_vs_cpu("D2 SIC", card, cpu)
+    lagbank.lag_bank_kernel.launches = 0
+    as_n = dllpll_verb(work, "sic_as_n", cap, truths, dev, sic=False, **kw)
+    launches["d2_rows_as_n"] = lagbank.lag_bank_kernel.launches
+    locked_n, ok_n, df_n, gd_n = check_truths(as_n["rows"], weak, D_SECONDS - 1)
+    log(f"  D2 the same rows marked N: {locked_n} of {len(weak)} weak channels report "
+        f"at second {D_SECONDS - 1}, {ok_n} on their truths (worst |df| {df_n:.4f} Hz, "
+        f"|gd| {gd_n:.4f} sample); wall {as_n['wall']:.3f} s")
+    os.remove(cap)
+    return {"channels": len(truths), "sic_rows": len(weak), "wall_s": card["wall"],
+            **gate, "vs_cpu": vs, "weak_as_n": {"report": locked_n, "on_truth": ok_n,
+                                                "worst_df_hz": df_n,
+                                                "worst_gd_samples": gd_n}}
+
+
+def d3_real(work: str, dev, seed: int, taps: list[int], launches: dict) -> dict:
+    """D3: ``--real``: real samples on the I columns, the emissions on a
+    carrier at fs/5."""
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    cap = os.path.join(work, "real.sc16")
+    truths = synthesize(dev, seed + 3, taps, cap, n_seconds=D_SECONDS,
+                        groups=[Emissions(4)], dop_span=D_DOP_SPAN,
+                        carrier_hz=D_CARRIER_HZ, real=True)
+    kw = dict(fc_hz=D_CARRIER_HZ, frange=D_FRANGE)
+    lagbank.lag_bank_kernel.launches = 0
+    card = dllpll_verb(work, "real", cap, truths, dev, "--real", **kw)
+    launches["d3_real"] = lagbank.lag_bank_kernel.launches
+    log(f"D3 dllpll --real, {len(truths)} channels on a {D_CARRIER_HZ / 1e6:g} MHz "
+        f"carrier: wall {card['wall']:.3f} s for {D_SECONDS} s; "
+        f"{launches['d3_real']} window-form launches")
+    gate = truth_gate("D3 --real", card["rows"], truths, D_SECONDS - 1)
+    cpu = dllpll_verb(work, "real_cpu", cap, truths, "cpu", "--real", "--seconds",
+                      str(D_CPU_SECONDS), **kw)
+    vs = card_vs_cpu("D3 --real", card, cpu)
+    os.remove(cap)
+    return {"channels": len(truths), "wall_s": card["wall"], **gate, "vs_cpu": vs}
+
+
+def d4_mixed(work: str, dev, seed: int, taps: list[int], launches: dict) -> dict:
+    """D4: two chip rates in one ``sdr.param`` (``MultiBankReceiver``), and
+    the window-form kernel at the slower geometry's launch shape."""
+    from amaranth_twstft_tpu_torch.models import tracker
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    cap = os.path.join(work, "mixed.sc16")
+    truths = synthesize(dev, seed + 4, taps, cap, n_seconds=D_SECONDS, groups=[
+        Emissions(4), Emissions(4, chip_rate=D_SLOW_CHIP_RATE)], dop_span=D_DOP_SPAN)
+    slow_nobs = code_samples(D_SLOW_CHIP_RATE)
+    kw = dict(frange=D_FRANGE)
+    lb: dict = {}
+    orig_lb = tracker.lag_bank_windows
+
+    def keep_slow(obs, wav_ext, nlag, power_scale=0.5):
+        if obs.shape[-1] == slow_nobs:
+            lb.update(obs=obs, wav_ext=wav_ext, nlag=nlag, power_scale=power_scale)
+        return orig_lb(obs, wav_ext, nlag, power_scale)
+
+    lagbank.lag_bank_kernel.launches = 0
+    tracker.lag_bank_windows = keep_slow
+    try:
+        card = dllpll_verb(work, "mixed", cap, truths, dev, **kw)
+    finally:
+        tracker.lag_bank_windows = orig_lb
+    launches["d4_mixed"] = lagbank.lag_bank_kernel.launches
+    if "2 channel geometries" not in card["stderr"]:
+        raise RuntimeError("D4: the verb did not report two geometry groups")
+    order = [int(ln.split()[2][3:]) for _, ln in card["printed"]
+             if int(ln.split()[0]) == D_SECONDS - 1]
+    if order != sorted(k[1] for k in truths):
+        raise RuntimeError(f"D4: rows of second {D_SECONDS - 1} in order {order}")
+    log(f"D4 dllpll with {len(truths)} channels at {CHIP_RATE / 1e3:g} and "
+        f"{D_SLOW_CHIP_RATE / 1e3:g} kcps: two geometry groups (MultiBankReceiver), "
+        f"rows in sdr.param's order; wall {card['wall']:.3f} s for {D_SECONDS} s; "
+        f"{launches['d4_mixed']} window-form launches")
+    gate = truth_gate("D4 mixed geometries", card["rows"], truths, D_SECONDS - 1)
+    cpu = dllpll_verb(work, "mixed_cpu", cap, truths, "cpu", "--seconds",
+                      str(D_CPU_SECONDS), **kw)
+    vs = card_vs_cpu("D4 mixed geometries", card, cpu)
+    os.remove(cap)
+
+    # the window form at the slower geometry's launch shape
+    (abs_err, pow_err, ph_err), kern64, plain64, w_mat = check_kernel(lb)
+    obs, wav_ext, nlag, scale = lb["obs"], lb["wav_ext"], lb["nlag"], lb["power_scale"]
+    G, _, P, K = obs.shape
+    nl = 2 * nlag + 1
+    ms = cuda_ms(lambda: lagbank.lag_bank_windows(obs, wav_ext, nlag, scale), 20)
+    plain_ms = cuda_ms(lambda: lagbank.lag_bank_windows_plain(obs, wav_ext, nlag, scale), 5)
+    nbytes = 4.0 * (obs.numel() + wav_ext.numel() + 4 * G * P * nl)
+    bound_bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    bound_tf32x3_ms = 1e3 * 3 * (2.0 * 2 * G * P * nl * K) / PEAK_TF32_FLOPS
+    log(f"  window form at (G, P, K, NL) = ({G}, {P}, {K}, {nl}): kernel {ms:.4f} ms per "
+        f"launch, plain {plain_ms:.4f} ms (CUDA events); bytes floor {bound_bytes_ms:.4f} "
+        f"ms ({nbytes:.3e} B), 3xTF32 bound {bound_tf32x3_ms:.4f} ms -> "
+        f"{100 * max(bound_bytes_ms, bound_tf32x3_ms) / ms:.1f}% of the bound")
+    del lb, obs, wav_ext, w_mat
+    return {"channels": len(truths), "wall_s": card["wall"], **gate, "vs_cpu": vs,
+            "slow_launch": {"shape": [G, P, K, nl], "ms": ms, "plain_ms": plain_ms,
+                            "bound_bytes_ms": bound_bytes_ms,
+                            "bound_tf32x3_ms": bound_tf32x3_ms, "max_abs_err": abs_err,
+                            "max_err_over_row_max": pow_err,
+                            "max_phase_err_cycles": ph_err, "f64_err": kern64[0],
+                            "plain_f64_err": plain64[0]}}
+
+
+def d5_follow(work: str, cap: str, truths: dict, dev, launches: dict) -> dict:
+    """D5: ``dllpll --follow`` on a file that a writer thread grows from
+    the main capture, one second per second, against a run without
+    ``--follow`` on the finished file."""
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    fs, nobs = int(FS), code_samples(CHIP_RATE)
+    grow = os.path.join(work, "follow.sc16")
+    open(grow, "wb").close()
+    appended: list[float] = []
+    writer_error: list[BaseException] = []
+
+    def writer():
+        try:
+            with open(cap, "rb") as src, open(grow, "ab") as dst:
+                t_start = time.monotonic()
+                for k in range(D_SECONDS):
+                    # one second per second, as a receiver writes; the last
+                    # append carries the one code the last second reads on
+                    time.sleep(max(0.0, t_start + k - time.monotonic()))
+                    dst.write(src.read(8 * (fs + (nobs if k == D_SECONDS - 1 else 0))))
+                    dst.flush()
+                    appended.append(time.monotonic())
+        except BaseException as e:  # noqa: BLE001 — raised below
+            writer_error.append(e)
+
+    yielded: list[float] = []
+    wt = threading.Thread(target=writer, daemon=True)
+    lagbank.lag_bank_kernel.launches = 0
+    wt.start()
+    followed = dllpll_verb(work, "follow", grow, truths, dev, "--follow",
+                           "--idle-timeout", "2", stream_times=yielded)
+    launches["d5_follow"] = lagbank.lag_bank_kernel.launches
+    wt.join(timeout=60.0)
+    if wt.is_alive() or writer_error:
+        raise RuntimeError(f"D5: the writer failed: {writer_error}")
+    finished = dllpll_verb(work, "finished", grow, truths, dev)
+    if [ln for _, ln in followed["printed"]] != [ln for _, ln in finished["printed"]] \
+            or followed["log"] != finished["log"]:
+        raise RuntimeError("D5: --follow printed other rows than the finished file's run")
+    gate = truth_gate("D5 --follow", followed["rows"], truths, D_SECONDS - 1)
+    lags = [y - a for y, a in zip(yielded, appended)]
+    row_lags = {}
+    for t, ln in followed["printed"]:
+        s = int(ln.split()[0])
+        row_lags[s] = t - appended[s]
+    log(f"D5 dllpll --follow --idle-timeout 2 on a file grown one second per second: "
+        f"{len(followed['printed'])} rows equal to the finished file's run, the same "
+        f"log; wall {followed['wall']:.3f} s (finished file {finished['wall']:.3f} s); "
+        f"lag from each second's append to its reports {[round(x, 3) for x in lags]} s, "
+        f"to its last printed row {({k: round(v, 3) for k, v in row_lags.items()})} s "
+        f"(run_stream reports second k once second k+1 is uploaded)")
+    os.remove(grow)
+    return {"rows": len(followed["printed"]), "wall_s": followed["wall"],
+            "finished_wall_s": finished["wall"], "lag_s": lags,
+            "row_lag_s": row_lags, **gate}
+
+
+def modes_phase(work: str, cap: str, truths: dict, dev, seed: int,
+                taps: list[int]) -> dict:
+    """Phase D: the DLL/PLL receiver's modes; returns the numbers of the
+    ``{"dllpll_modes": ...}`` line."""
+    nobs = code_samples(CHIP_RATE)
+    t0 = time.perf_counter()
+    secs = list(sc16_seconds(cap, N_SECONDS, nobs))
+    log(f"D: {N_SECONDS} s of the main capture read in {time.perf_counter() - t0:.1f} s")
+    out = d1_transfers(work, truths, dev, secs)
+    del secs
+    launches = out["launches"]
+    out["follow"] = d5_follow(work, cap, truths, dev, launches)
+    out["sic"] = d2_sic(work, dev, seed, taps, launches)
+    out["real"] = d3_real(work, dev, seed, taps, launches)
+    out["mixed"] = d4_mixed(work, dev, seed, taps, launches)
+    idle = [k for k, n in launches.items() if n <= 0]
+    if idle:
+        raise RuntimeError(f"D: the window-form kernel never launched on {idle}")
+    return out
+
+
 def parity_capture(work: str) -> dict:
     """The JAX suite's fractional-delay capture (``tests_tpu/
     test_device_parity.py:22-48``, its arithmetic copied): ``P_EPOCHS``
@@ -2636,11 +3232,17 @@ def oracle_delays(cap: str, code: str, df: float) -> np.ndarray:
 
 
 def parity_phase(work: str, dev) -> dict:
-    """Steps P1-P2; returns the numbers of the ``{"parity": ...}`` line."""
+    """Steps P1-P3; returns the numbers of the ``{"parity": ...}`` line."""
     from amaranth_twstft_tpu_torch import pipeline
     from amaranth_twstft_tpu_torch.config import ProcessingConfig, SignalConfig
     from amaranth_twstft_tpu_torch.ops import boundary
+    from amaranth_twstft_tpu_torch.ops.doppler import (
+        PREPASS_MAX_SAMPLES,
+        bound_prepass_window,
+        per_file_df_ri,
+    )
     from amaranth_twstft_tpu_torch.ops.prn import interp_code
+    from amaranth_twstft_tpu_torch.utils import io as sc16
 
     cfg = SignalConfig()
     ps_per_sample = 1e12 / cfg.fs
@@ -2705,6 +3307,25 @@ def parity_phase(work: str, dev) -> dict:
         raise RuntimeError(f"nint=4 bias {err_ps.max()} ps")
     out["nint4"] = {"errors_ps": err_ps.tolist(), "max_ps": float(err_ps.max()),
                     "bound_ps": NINT4_BOUND_PS}
+    # -- P3. the int8-packed df pre-pass against the float32 one ------------
+    # (tests_tpu/test_device_parity.py:120-154's arithmetic)
+    proc = ProcessingConfig(hamming_window=True)
+    dec = bound_prepass_window(sc16.decimate_sc16(
+        pc["cap"], proc.df_decimation, channels=2, max_out=PREPASS_MAX_SAMPLES))
+    bin_hz = cfg.fs / proc.df_decimation / dec.shape[-1]
+    dfs = {}
+    for dt in (np.float32, np.int8, np.int16):
+        ri = torch.as_tensor(pipeline._pack_prepass(dec[0], dt)).to(dev)
+        dfs[np.dtype(dt).name] = float(per_file_df_ri(ri, cfg.fs, proc.df_decimation))
+    d8 = abs(dfs["int8"] - dfs["float32"])
+    d16 = abs(dfs["int16"] - dfs["float32"])
+    log(f"P3 df pre-pass: float32 {dfs['float32']!r} Hz, int8 {dfs['int8']!r} Hz, int16 "
+        f"{dfs['int16']!r} Hz (bin {bin_hz:.6f} Hz); int8 {d8:.3e} Hz from float32 (bound "
+        f"2 bins + 1e-6 Hz), int16 {d16:.3e} Hz (bound 1e-6 Hz)")
+    if not (d8 <= 2 * bin_hz + 1e-6 and d16 <= 1e-6):
+        raise RuntimeError(f"df pre-pass: int8 {d8} Hz, int16 {d16} Hz from float32")
+    out["prepass"] = {"df_hz": dfs, "bin_hz": bin_hz, "int8_diff_hz": d8,
+                      "int16_diff_hz": d16}
     shutil.rmtree(pc["dir"])
     return out
 
@@ -2853,6 +3474,12 @@ def main() -> int:
     sharded = bank_on_mesh(work, truths, cap, dev, mesh, main_reports, launches, rxlog)
     sharded.update(init_s=t_init, make_mesh_s=t_mesh)
     log(f"mesh bank phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- D1-D6. the DLL/PLL receiver's modes --------------------------------
+    t0 = time.perf_counter()
+    modes = modes_phase(work, cap, truths, dev, args.seed, taps)
+    modes["phase_s"] = time.perf_counter() - t0
+    log(f"dllpll modes phase: {modes['phase_s']:.1f} s")
     os.remove(cap)
 
     # -- 16-20. the host-sequential receiver (dllpll --host --serve) -------
@@ -2940,6 +3567,8 @@ def main() -> int:
     log(json.dumps({"ranging": rg}))
     log(json.dumps({"batch": bt}))
     log(json.dumps({"parity": par}))
+    log(json.dumps({"dllpll_modes": modes}))
+    slow = modes["mixed"]["slow_launch"]
     log(json.dumps({"kernels": [{
         "name": "lagbank",
         "route": "cuda",
@@ -2966,6 +3595,13 @@ def main() -> int:
         "launches_sharded_lagbank_step": sharded["lagbank_step_launches"],
         "ms_sharded_lagbank_step": sharded["lagbank_step_ms"],
         "bound_ms_sharded_lagbank_step": sharded["lagbank_step_bound_ms"],
+        "launches_dllpll_modes": modes["launches"],
+        "shape_slow_geometry": slow["shape"],
+        "ms_slow_geometry": slow["ms"],
+        "plain_ms_slow_geometry": slow["plain_ms"],
+        "bound_ms_slow_geometry": max(slow["bound_bytes_ms"], slow["bound_tf32x3_ms"]),
+        "max_err_over_row_max_slow_geometry": slow["max_err_over_row_max"],
+        "f64_err_slow_geometry": slow["f64_err"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -637,6 +637,117 @@ def test_run_stream_copy_stream_prefetch_identical(cuda):
         assert all(r is not None and r.locked for r in out[0][0][3])
 
 
+def _reports_close(rep_c, rep_g):
+    """Card against CPU: the same reports present, lock and cnt identical,
+    fc/gd/phi within the bank's card-vs-CPU bounds."""
+    for sec_c, sec_g in zip(rep_c, rep_g, strict=True):
+        for a, b in zip(sec_c, sec_g, strict=True):
+            assert (a is None) == (b is None)
+            if a is None:
+                continue
+            assert a.locked == b.locked and a.cnt == b.cnt
+            assert abs(a.fc_hz - b.fc_hz) < FC_HZ
+            assert abs(a.gd_ns - b.gd_ns) < GD_NS
+            assert abs(a.phi_cycles - b.phi_cycles) < PHI_CYCLES
+
+
+def _on_truth(rep, delay, dop):
+    """Doppler within 1 Hz, code delay within a quarter sample (fs = 1e5,
+    L = 2000)."""
+    assert rep is not None and rep.locked
+    assert abs(rep.fc_hz - dop) < 1.0, rep.fc_hz
+    err = (rep.gd_ns - delay * 1e4) % (2000 * 1e4)
+    assert min(err, 2000 * 1e4 - err) < 0.25 * 1e4, rep.gd_ns
+
+
+@pytest.mark.parametrize("transfer", ["int4", "int2"])
+def test_run_stream_packed_transfers_prefetch_identical(cuda, transfer):
+    """The counterpart of the JAX suite's on-device stream check
+    (tests_tpu/test_run_stream_device.py) for both packed formats: the
+    prefetching stream and the unprefetched one give the same bits, the
+    upload is the packed format, and both PRNs lock on their truths."""
+    cfg, chans, secs = _two_prn_seconds(np.complex128)
+    out = []
+    for prefetch in (True, False):
+        rx = tt.BankedReceiver(chans, fs=cfg.fs, transfer=transfer, device=cuda)
+        assert rx.upload_second(secs[0]).dev.dtype == (
+            torch.uint8 if transfer == "int2" else torch.int8)
+        before = tlb.lag_bank_kernel.launches
+        reps = list(rx.run_stream(iter(secs), prefetch=prefetch))
+        assert tlb.lag_bank_kernel.launches > before
+        out.append((reps, rx.log, [dataclasses.asdict(s) for s in rx.states]))
+    assert out[0] == out[1]
+    for rep, (delay, dop) in zip(out[0][0][3], ((137.2, 120.0), (555.0, -210.0))):
+        _on_truth(rep, delay, dop)
+
+
+def test_sic_bank_on_card_matches_cpu(cuda):
+    """SIC rows on the bank (tests/test_torch_receiver_modes.py's capture:
+    a weak PRN 27 dB under a strong one, on an ``S`` row), card against
+    CPU over four seconds: the same log lines, reports and code heads, and
+    the weak channel reaches code lock on its truth."""
+    cfg = SignalConfig(fs=1e5, chip_rate=5e4, code_len=1000, bit_len=10, taps=9)
+    (stream,) = synthesize_capture(
+        cfg,
+        [ChannelSim(delay_samples=137.0, doppler_hz=120.0, amplitude=2500,
+                    noise_sigma=40)],
+        n_seconds=5, seed=5,
+        extra_emissions=[(dataclasses.replace(cfg, taps=27),
+                          ChannelSim(delay_samples=555.0, doppler_hz=-210.0,
+                                     amplitude=110, noise_sigma=0.0))],
+    )
+    _, chans, _ = _two_prn_seconds()
+    chans[1] = dataclasses.replace(chans[1], is_sic=True)
+    fs, L = 100_000, 2000
+    secs = [{"A": stream[s * fs : (s + 1) * fs + 2 * L]} for s in range(4)]
+    rx_c = tt.BankedReceiver(chans, fs=cfg.fs, device="cpu")
+    rx_g = tt.BankedReceiver(chans, fs=cfg.fs, device=cuda)
+    rep_c = list(rx_c.run_stream(iter(secs)))
+    rep_g = list(rx_g.run_stream(iter(secs)))
+    assert rx_g.log == rx_c.log
+    assert "code lock   : Ch. A, PRN#151, count = 49 / 50" in rx_g.log
+    _reports_close(rep_c, rep_g)
+    assert [s.pt for s in rx_g.states] == [s.pt for s in rx_c.states] == [137, 555]
+    assert abs(rx_g.states[1].fc - -210.0) < 1.0
+
+
+def test_multibank_on_card_matches_cpu(cuda):
+    """Two code geometries (50 and 25 kcps: L = 2000 and 4000) through
+    MultiBankReceiver, card against CPU over four seconds: the same logs,
+    reports in the callers' order and code heads, both channels on their
+    truths."""
+    cfg = SignalConfig(fs=1e5, chip_rate=5e4, code_len=1000, bit_len=10, taps=9)
+    (stream,) = synthesize_capture(
+        cfg,
+        [ChannelSim(delay_samples=137.0, doppler_hz=120.0, amplitude=900,
+                    noise_sigma=120)],
+        n_seconds=5, seed=23,
+        extra_emissions=[(dataclasses.replace(cfg, chip_rate=2.5e4, taps=27),
+                          ChannelSim(delay_samples=1555.0, doppler_hz=-210.0,
+                                     amplitude=900, noise_sigma=0.0))],
+    )
+    _, chans, _ = _two_prn_seconds()
+    chans[1] = dataclasses.replace(chans[1], chip_rate=2.5e4, filter_hz=2.5e4)
+    fs, L = 100_000, 4000
+    secs = [{"A": stream[s * fs : (s + 1) * fs + 2 * L]} for s in range(4)]
+    rx_c = tt.MultiBankReceiver(chans, fs=cfg.fs, device="cpu")
+    rx_g = tt.MultiBankReceiver(chans, fs=cfg.fs, device=cuda)
+    assert len(rx_g.receivers) == 2
+    before = tlb.lag_bank_kernel.launches
+    rep_c = [rx_c.process_second(s) for s in secs]
+    rep_g = [rx_g.process_second(s) for s in secs]
+    assert tlb.lag_bank_kernel.launches > before
+    assert rx_g.log == rx_c.log
+    _reports_close(rep_c, rep_g)
+    assert [s.pt for s in rx_g.states] == [s.pt for s in rx_c.states]
+    assert [c.cfg.prn_id for c in rx_g.channels] == [100, 101]
+    _on_truth(rep_g[3][0], 137.0, 120.0)
+    rep = rep_g[3][1]
+    assert rep is not None and rep.locked and abs(rep.fc_hz - -210.0) < 1.0
+    err = (rep.gd_ns - 1555.0 * 1e4) % (4000 * 1e4)
+    assert min(err, 4000 * 1e4 - err) < 0.25 * 1e4
+
+
 # ------------------------------------------------------------- multi-GPU
 @pytest.fixture
 def nccl_mesh(cuda):
