@@ -72,20 +72,32 @@
 //     for the whole launch: 264 chunks of 760 at the host shape;
 //   - a ring of kXS-sample stages, as deep (up to four) as two resident
 //     blocks per SM allow (explicit_ring), filled by one producer warp
-//     with `cp.async.bulk`: one 1-D copy per obs row and ONE copy of the
-//     stage's kXS contiguous matrix rows (a TMA tensor map cannot take
-//     the matrix: its 228-byte row pitch is not a multiple of 16); with
-//     four stages of 27 KB, up to three are in flight per block;
-//   - A fragments (lags x samples) straight from the [n][w_n] stage (the
-//     odd pitch of 57 leaves few bank conflicts), B fragments from the
-//     obs rows as in the window form; lags past NL in the last m16 tile
-//     read neighbouring floats, and their rows of the result are dropped;
+//     with `cp.async.bulk`: one 1-D copy per obs row, and the stage's
+//     matrix rows in one of two layouts (a TMA tensor map cannot take the
+//     matrix: its 228-byte row pitch is not a multiple of 16):
+//     * whole rows: ONE copy of the stage's kXS contiguous rows, pitch
+//       w_n; taken for a block that holds every lag (NL <= 64) while its
+//       ring is at least as deep as the windows' three stages (w_n <= 99;
+//       four stages of 27 KB at the host shape, up to three in flight),
+//       since one copy per stage beats one per row;
+//     * windows: one copy per row of the block's own 64-lag window, from
+//       the 16-byte unit that holds its first lag, into a fixed pitch of
+//       kXWPitch floats (the window's first lag lands at column
+//       (n * w_n) % 4 of stage row n, the same for rows 4 apart), so the
+//       stage no longer grows with NL or w_n: three stages of 31 KB and
+//       two blocks per SM at any NL, where whole rows of 403 lags would
+//       not fit even one block's shared memory;
+//   - A fragments (lags x samples) straight from the stage (the odd pitch
+//     of 57, or the window's offset per row, leaves few bank conflicts), B
+//     fragments from the obs rows as in the window form; lags past NL in
+//     the last m16 tile read neighbouring floats, and their rows of the
+//     result are dropped;
 //   - each stage's chain is added to an IEEE fp32 sum per lane, in
 //     registers; the K-halves and the chunks are summed in a fixed order
 //     (the second pass), so two launches give the same bits;
 //   - the K tail is masked in the kernel: the last rows of the matrix go
-//     by a bulk copy of whole 16-byte units and at most three plain
-//     loads, so the receiver's cached matrix is never copied per call.
+//     by bulk copies of whole 16-byte units and at most three plain loads
+//     each, so the receiver's cached matrix is never copied per call.
 //   The launcher refuses every layout but the window form's and this
 //   row-major one (w_l = 1, w_n >= NL).
 
@@ -408,7 +420,12 @@ constexpr int kXPart = kXS / kKSplit;  // samples per consumer warp and stage
 constexpr int kXRowStride = kXS + 4;   // conflict-free B-fragment loads
 constexpr int kXObsFloats = kRows * kXRowStride;
 constexpr int kXMaxRing = 4;
+// window layout: a row's 64 lags from the 16-byte unit holding the first
+// span at most 67 floats; 72 (8 mod 32) keeps rows 1-3 apart in banks
+constexpr int kXWPitch = 72;
+constexpr int kXRowsPerLane = kXS / 32;  // the producer's matrix rows per lane
 static_assert(kXPart % 8 == 0, "whole k8 steps per consumer warp");
+static_assert(kXS % 32 == 0, "whole matrix rows per producer lane");
 static_assert(kKSplit == 2, "one K part hands its sums to the other");
 static_assert(kRowGroups * kVals * 32 <= 2 * kXObsFloats,
               "the K parts' exchange fits in two obs stages");
@@ -418,10 +435,10 @@ struct XArgs {
   int64_t obs_g, obs_c, obs_p;  // element strides; stride along n is 1
   const float* w;               // W_g[n, l] = w[g*w_g + n*w_n + l]
   int64_t w_g, w_n;
+  int64_t w_lim;                // floats of each channel readable from w
   int P, K, NL;
   int kb;       // samples per block (a multiple of 4)
   int nchunk;   // ceil(K / kb)
-  int rblocks;  // ceil(2P / kRows)
   int ring;     // ring stages, 2..kXMaxRing
   float* part;  // (G, nchunk, 2, P, NL) partial sums
 };
@@ -485,22 +502,32 @@ __device__ __forceinline__ void consume_explicit(float (&acc)[kMT][kNT][4],
   }
 }
 
-// One block per (K-chunk, channel, row block x lag block); shared memory
+// Floats of one explicit-form stage's matrix rows: whole rows of pitch
+// w_n, or the block's 64-lag windows (WIN) at pitch kXWPitch.
+__host__ __device__ constexpr int64_t explicit_w_stage(bool win, int64_t w_n) {
+  return win ? (int64_t)kXS * kXWPitch : (int64_t)kXS * w_n;
+}
+
+// One block per (K-chunk x lag block, channel, row block); shared memory
 // holds the barriers, the ring's matrix stages, then its obs stages.
+template <bool WIN>
 __global__ void __launch_bounds__(kWinThreads, 2)
     lagbank_explicit_kernel(const XArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* empty = full + a.ring;
   const int wn = (int)a.w_n;
-  const int w_stage = kXS * wn;  // floats of one stage's matrix rows
+  const int w_stage = (int)explicit_w_stage(WIN, a.w_n);
   float* w_ring = reinterpret_cast<float*>(empty + a.ring);
   float* x_ring = w_ring + a.ring * w_stage;
 
-  const int chunk = blockIdx.x;
+  // a chunk's lag blocks are neighbours in the launch order, so the
+  // chunk's obs rows come from L2 after the first of them reads them
+  const int lblocks = (a.NL + kLags - 1) / kLags;
+  const int chunk = blockIdx.x / lblocks;
   const int g = blockIdx.y;
-  const int r0 = (blockIdx.z % a.rblocks) * kRows;
-  const int lb = (blockIdx.z / a.rblocks) * kLags;
+  const int r0 = blockIdx.z * kRows;
+  const int lb = (blockIdx.x % lblocks) * kLags;
   const int rows = min(kRows, 2 * a.P - r0);
   const int64_t k_begin = (int64_t)chunk * a.kb;
   const int len = (int)min((int64_t)a.kb, (int64_t)a.K - k_begin);
@@ -534,19 +561,58 @@ __global__ void __launch_bounds__(kWinThreads, 2)
       const int lim = min(kXS, len - n0);
       // obs rows in whole float4s: each row holds K rounded up to 4
       const uint32_t x_bytes = 16u * (uint32_t)((lim + 3) / 4);
-      // the stage's matrix rows end at lag NL - 1 of its last row; the
-      // bulk copy takes whole 16-byte units, plain loads the rest
-      const uint32_t w_floats = (uint32_t)((lim - 1) * wn + a.NL);
-      const uint32_t w_bulk = (4u * w_floats) & ~15u;
       const float* wsrc = w_g + (int64_t)n0 * a.w_n;
       float* wdst = w_ring + s * w_stage;
-      if (lane == 0) {
-        for (uint32_t i = w_bulk / 4; i < w_floats; ++i) wdst[i] = wsrc[i];
-        mbar_arrive_expect_tx(&full[s], x_bytes * rows + w_bulk);
-      }
-      __syncwarp();
-      if (lane == 0 && w_bulk > 0) {
-        bulk_g2s(wdst, wsrc, w_bulk, &full[s]);
+      uint32_t w_bulk = 0;
+      if (WIN) {
+        // row r's lags [lb, lb + cnt) from the 16-byte unit holding lag
+        // lb: bulk copies of whole units inside the channel's readable
+        // floats, plain loads for the rest (only at the matrix's end)
+        const int cnt = min(kLags, a.NL - lb);
+        const int64_t first = (k_begin + n0) * a.w_n + lb;  // row 0's lag lb
+        const int64_t room = a.w_lim - (first & ~(int64_t)3);
+        uint32_t units[kXRowsPerLane];
+#pragma unroll
+        for (int j = 0; j < kXRowsPerLane; ++j) {
+          const int r = lane + 32 * j;
+          units[j] = 0;
+          if (r >= lim) continue;
+          const int64_t q = (int64_t)r * a.w_n + (first & 3);  // from the unit
+          const int64_t q0 = q & ~(int64_t)3;
+          const int64_t end = q + cnt;
+          const int64_t fit = (room - q0) / 4;
+          units[j] = (uint32_t)min((end - q0 + 3) / 4, fit);
+          float* drow = wdst + r * kXWPitch;
+          const float* srow = wsrc + r * a.w_n + lb - (q - q0);
+          for (int64_t i = 4 * (int64_t)units[j]; i < end - q0; ++i) drow[i] = srow[i];
+          w_bulk += 16u * units[j];
+        }
+        w_bulk = __reduce_add_sync(0xffffffffu, w_bulk);
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) mbar_arrive_expect_tx(&full[s], x_bytes * rows + w_bulk);
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < kXRowsPerLane; ++j) {
+          const int r = lane + 32 * j;
+          if (units[j] == 0) continue;
+          const int64_t q = (int64_t)r * a.w_n + (first & 3);
+          bulk_g2s(wdst + r * kXWPitch, wsrc + r * a.w_n + lb - (q & 3),
+                   16u * units[j], &full[s]);
+        }
+      } else {
+        // the stage's matrix rows end at lag NL - 1 of its last row; the
+        // bulk copy takes whole 16-byte units, plain loads the rest
+        const uint32_t w_floats = (uint32_t)((lim - 1) * wn + a.NL);
+        w_bulk = (4u * w_floats) & ~15u;
+        if (lane == 0) {
+          for (uint32_t i = w_bulk / 4; i < w_floats; ++i) wdst[i] = wsrc[i];
+          mbar_arrive_expect_tx(&full[s], x_bytes * rows + w_bulk);
+        }
+        __syncwarp();
+        if (lane == 0 && w_bulk > 0) {
+          bulk_g2s(wdst, wsrc, w_bulk, &full[s]);
+        }
       }
       float* xdst = x_ring + s * kXObsFloats;
       for (int r = lane; r < rows; r += 32) {
@@ -567,17 +633,22 @@ __global__ void __launch_bounds__(kWinThreads, 2)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][n][e] = sum[i][n][e] = 0.f;
     const int jbeg = kw * kXPart;
+    // this lane's stage rows are jbeg + tq + 4m; in the window layout
+    // their lag lb lies at column ((k_begin + row) * w_n) % 4, which is
+    // (tq * w_n) % 4 since k_begin and jbeg are multiples of 4
+    const int pitch = WIN ? kXWPitch : wn;
+    const int col0 = WIN ? (int)(((int64_t)tq * a.w_n) & 3) : lb;
     for (int step = 0; step < nsteps; ++step) {
       const int s = step % a.ring;
       mbar_wait(&full[s], (step / a.ring) & 1);
       const int lim = min(kXS, len - step * kXS) - jbeg;
       const float* st = x_ring + s * kXObsFloats +
                         (nw * kNT * 8 + gq) * kXRowStride + jbeg + tq;
-      const float* wt = w_ring + s * w_stage + (jbeg + tq) * wn + lb + gq;
+      const float* wt = w_ring + s * w_stage + (jbeg + tq) * pitch + col0 + gq;
       if (lim >= kXPart) {
-        consume_explicit<false>(acc, st, wt, wn, tq, lim);
+        consume_explicit<false>(acc, st, wt, pitch, tq, lim);
       } else if (lim > 0) {
-        consume_explicit<true>(acc, st, wt, wn, tq, lim);
+        consume_explicit<true>(acc, st, wt, pitch, tq, lim);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
@@ -694,25 +765,27 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, int (&allowed)[kMaxDevices]) 
 }
 
 // The explicit form's shared memory: the ring's barriers, matrix stages
-// and obs stages
-size_t explicit_smem(int ring, int64_t w_n) {
+// (whole rows of pitch w_n, or WIN's 64-lag windows) and obs stages
+size_t explicit_smem(int ring, bool win, int64_t w_n) {
   return 2 * (size_t)ring * sizeof(uint64_t) +
-         (size_t)ring * ((size_t)kXS * w_n + kXObsFloats) * sizeof(float);
+         (size_t)ring * ((size_t)explicit_w_stage(win, w_n) + kXObsFloats) *
+             sizeof(float);
 }
 
 // The explicit form's ring: the deepest (at most kXMaxRing stages) that
 // keeps two blocks resident per SM (228 KB of shared memory, 1 KB of it
 // reserved per block), else two stages in one block's 227 KB; 0 when
-// even that does not fit the matrix's row pitch `w_n`.
-int explicit_ring(int64_t w_n) {
+// even that does not fit.
+int explicit_ring(bool win, int64_t w_n) {
   for (int ring = kXMaxRing; ring > 2; --ring)
-    if (2 * (explicit_smem(ring, w_n) + 1024) <= 228 * 1024) return ring;
-  return explicit_smem(2, w_n) <= 227 * 1024 ? 2 : 0;
+    if (2 * (explicit_smem(ring, win, w_n) + 1024) <= 228 * 1024) return ring;
+  return explicit_smem(2, win, w_n) <= 227 * 1024 ? 2 : 0;
 }
 
 int launch_explicit(const Args& a, int G, cudaStream_t s) {
   // bulk copies move 16-byte-aligned runs of whole float4s: obs rows and
-  // the matrix's stages (rows from a multiple of 4, so any row pitch)
+  // the matrix's stages (whole rows from a multiple of 4, windows from
+  // the 16-byte unit of their first lag, so any row pitch)
   const float* w = a.w + a.w_off;
   const bool aligned = reinterpret_cast<uintptr_t>(a.obs) % 16 == 0 &&
                        a.obs_g % 4 == 0 && a.obs_c % 4 == 0 &&
@@ -722,9 +795,14 @@ int launch_explicit(const Args& a, int G, cudaStream_t s) {
   // every read within the channel's [0, w_len)
   const bool inside = a.w_off >= 0 && a.w_n >= a.NL &&
                       a.w_off + (int64_t)(a.K - 1) * a.w_n + a.NL <= a.w_len;
-  const int ring = explicit_ring(a.w_n);
-  if (!aligned || !inside || ring == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = explicit_smem(ring, a.w_n);
+  if (!aligned || !inside) return (int)cudaErrorInvalidValue;
+  // whole rows while they keep a ring as deep as the windows' (a narrow
+  // matrix whose lags fit one block), else the block's windows
+  const int ring_win = explicit_ring(true, a.w_n);
+  const int ring_whole = a.NL <= kLags ? explicit_ring(false, a.w_n) : 0;
+  const bool win = ring_whole < ring_win;
+  const int ring = win ? ring_win : ring_whole;
+  const size_t smem = explicit_smem(ring, win, a.w_n);
   XArgs x;
   x.obs = a.obs;
   x.obs_g = a.obs_g;
@@ -733,22 +811,31 @@ int launch_explicit(const Args& a, int G, cudaStream_t s) {
   x.w = w;
   x.w_g = a.w_g;
   x.w_n = a.w_n;
+  x.w_lim = a.w_len - a.w_off;
   x.P = a.P;
   x.K = a.K;
   x.NL = a.NL;
   x.kb = a.kb;
   x.nchunk = a.nchunk;
-  x.rblocks = (2 * a.P + kRows - 1) / kRows;
   x.ring = ring;
   x.part = a.part;
-  const int lblocks = (a.NL + kLags - 1) / kLags;
-  if ((int64_t)x.rblocks * lblocks > 65535)
+  const int rblocks = (2 * a.P + kRows - 1) / kRows;
+  const int64_t lblocks = (a.NL + kLags - 1) / kLags;
+  if (rblocks > 65535 || a.nchunk * lblocks > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  static int allowed[kMaxDevices] = {};
-  const cudaError_t err = allow_smem(lagbank_explicit_kernel, smem, allowed);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.nchunk, G, x.rblocks * lblocks);
-  lagbank_explicit_kernel<<<grid, kWinThreads, smem, s>>>(x);
+  const dim3 grid((unsigned)(a.nchunk * lblocks), G, rblocks);
+  cudaError_t err;
+  if (win) {
+    static int allowed[kMaxDevices] = {};
+    err = allow_smem(lagbank_explicit_kernel<true>, smem, allowed);
+    if (err != cudaSuccess) return (int)err;
+    lagbank_explicit_kernel<true><<<grid, kWinThreads, smem, s>>>(x);
+  } else {
+    static int allowed[kMaxDevices] = {};
+    err = allow_smem(lagbank_explicit_kernel<false>, smem, allowed);
+    if (err != cudaSuccess) return (int)err;
+    lagbank_explicit_kernel<false><<<grid, kWinThreads, smem, s>>>(x);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -821,8 +908,8 @@ struct DeviceGuard {
 //   ops/lagbank.explicit_chunk picks) with the ring of explicit_ring(w_n);
 //   it needs 16-byte-aligned obs (pointer aligned, strides multiples of
 //   4, each row holding K rounded up to 4 floats) and W (w + w_off
-//   aligned, w_g a multiple of 4), every read of W within a channel's
-//   [0, w_len), and a pitch w_n for which a two-stage ring fits a block.
+//   aligned, w_g a multiple of 4), and every read of W within a
+//   channel's [0, w_len); any NL and pitch w_n >= NL.
 // Launches on `stream` of CUDA device `device` (made current for the
 // launches, the caller's current device restored), does not synchronise,
 // and returns the cudaError_t of the launches (0 = success).

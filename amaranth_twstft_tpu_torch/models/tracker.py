@@ -279,7 +279,7 @@ def banked_track_step(
     interior = (pk_idx >= 2) & (pk_idx < nlags - 2)
     # peak-quality gate (see dllpll: the reference's power gate is
     # commented out; without one a pure-noise second keeps "lock")
-    floor = torch.quantile(power, 0.5, dim=-1)
+    floor = torch.quantile(power, 0.5, dim=-1)  # over a row's NL lags
     quality = pkp > 10.0 * torch.clamp_min(floor, 1e-30)
     w = (interior & quality).to(torch.float32)
 

@@ -23,7 +23,8 @@ The claudio chain's estimators (``claudio_...separate.m:27-47,168-169``):
 the argmax within +/-3 bins of the locked line every block.  Two points
 where torch differs from JAX are handled explicitly: the median averages
 the two middle values (``torch.nanquantile(..., 0.5)``, as
-``jnp.nanmedian`` does; ``torch.nanmedian`` would take the lower one),
+``jnp.nanmedian`` does; ``torch.nanmedian`` would take the lower one;
+a sort above ``nanquantile``'s 2^24-element limit),
 and the refresh window's start is clipped by hand, as
 ``lax.dynamic_slice`` clamps it.
 """
@@ -186,25 +187,36 @@ def per_file_df_ri(
 
 
 #: ``torch.quantile``/``nanquantile`` refuse inputs above this many
-#: elements; a claudio block (10^7 bins at 5 MS/s x 2 s) is below it.
+#: elements; a claudio block at 5 MS/s (10^7 bins) is below it, one at
+#: more than 8.39 MS/s is not, and takes the median by a sort instead.
 QUANTILE_MAX_ELEMENTS = 1 << 24
+
+
+def _nan_median(d2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median of ``d2`` where ``mask``, averaging the two middle values as
+    ``jnp.nanmedian`` does (NaN when nothing is masked in).  Up to
+    ``QUANTILE_MAX_ELEMENTS`` bins it is ``torch.nanquantile(..., 0.5)``;
+    above, the masked values are sorted and the two middle ones mixed
+    with ``torch.lerp(lo, hi, 0.5)``, the step ``nanquantile`` takes."""
+    nan = torch.full((), float("nan"), dtype=d2.dtype, device=d2.device)
+    if d2.shape[-1] <= QUANTILE_MAX_ELEMENTS:
+        return torch.nanquantile(torch.where(mask, d2, nan), 0.5)
+    v = torch.sort(d2[mask]).values
+    m = v.shape[0]
+    if m == 0:
+        return nan
+    return torch.lerp(v[(m - 1) // 2], v[m // 2], 0.5)
 
 
 def _search_df(d, dcode, fcode, mask, fs, threshold, snr_threshold,
                max_candidates, notch_halfwidth, freq_dtype):
     """``(best, n_above)`` as 0-d tensors (``doppler.py:203-234``)."""
     n = d.shape[-1]
-    if n > QUANTILE_MAX_ELEMENTS:
-        raise ValueError(
-            f"search_df_candidates: {n} spectrum bins exceed torch.quantile's "
-            f"limit of {QUANTILE_MAX_ELEMENTS}"
-        )
     d2 = squaring_spectrum(d)
     mask = torch.as_tensor(mask, device=d2.device)
     zero = torch.zeros((), dtype=d2.dtype, device=d2.device)
-    nan = torch.full((), float("nan"), dtype=d2.dtype, device=d2.device)
     masked = torch.where(mask, d2, zero)
-    med = torch.nanquantile(torch.where(mask, d2, nan), 0.5)
+    med = _nan_median(d2, mask)
     above = masked > med * threshold
     # the top ``max_candidates`` bins among those above threshold; the
     # reference keeps the last passing candidate in ascending-bin order

@@ -33,8 +33,9 @@ The window form's floor is reading obs once, but on the H100 its
 products alone take longer than its copies alone
 (``tools/gpu_lagbank_probe.py``): ``mma.sync``'s rate bounds it, and
 ``wgmma`` is the next step.  The explicit (K, NL) form streams both obs
-and the lag matrix (one bulk copy per obs row and one per stage of matrix
-rows) over a split-K grid of two resident blocks per SM
+and the lag matrix (one bulk copy per obs row, and one per stage of whole
+matrix rows at NL <= 64 or one per row of a block's own 64-lag window
+above, so any NL fits) over a split-K grid of two resident blocks per SM
 (:func:`explicit_chunk`); its floor is reading both once (0.0251 ms
 at the host receiver's (2, 24, 200 000) x (200 000, 57)), with the
 products (0.0066 ms at the TF32 peak) under the copies.  The bulk copies
@@ -184,9 +185,8 @@ def lag_bank_kernel(
       split by :func:`explicit_chunk`) needs a 16-byte-aligned ``obs``
       with strides that are multiples of 4 and rows that hold K rounded
       up to 4 floats, ``w``'s data plus ``off`` 16-byte aligned, ``ws_g``
-      a multiple of 4, every read inside ``[0, extent)``, and a pitch
-      ``ws_n`` for which the kernel's two-stage ring fits one block's
-      shared memory.
+      a multiple of 4, and every read inside ``[0, extent)``; any NL and
+      pitch ``ws_n >= NL``.
 
     The launch fails on any other layout or alignment.  Returns power,
     phase, re, im, each (G, P, NL) float32.

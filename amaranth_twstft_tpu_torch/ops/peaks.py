@@ -78,7 +78,9 @@ def hrc_correction(corr: torch.Tensor, pk_idx: torch.Tensor) -> torch.Tensor:
 
 def median_iqr_sigma(x: torch.Tensor, w: torch.Tensor | None = None):
     """(median, IQR/1.349) along the last axis; ``w`` masks invalid
-    entries (weight 0), which become NaN for the nan-aware quantiles."""
+    entries (weight 0), which become NaN for the nan-aware quantiles.
+    The callers reduce over a second's codes or a session's points, far
+    below the 2^24 elements ``torch.quantile`` takes."""
     if w is not None:
         x = torch.where(w > 0, x, torch.full_like(x, float("nan")))
         q = torch.nanquantile

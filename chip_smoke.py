@@ -239,11 +239,64 @@ D6. ``reload_params`` after second 2 on a fresh int8 receiver, changing
     channels' states after second 3 equal D1's int8 run bit for bit, and
     the changed rows re-acquire and report on their truths at second 5.
 
+The modes walk, phase W: the device options no earlier phase passed, at
+production widths (5 MS/s, 100 000-chip codes, 120 bank channels), cut
+in depth to W_SECONDS = 4 s unless stated; each run's kernel launch
+counts set to 0 just before it and checked just after:
+
+W1. ``dllpll --nlag 32`` and ``--nlag 100`` on the main capture (NL 65
+    and 201: two and four 64-lag blocks of the window form), every
+    channel on its truth at second 3 and its rows against the main path's
+    nlag-28 rows within step 18's tolerance (equality recorded);
+    ``dllpll --host --nlag 32, 100, 201`` on the host capture, 3 s each
+    (NL 403 is past the 402 lags whose whole matrix rows fit the explicit
+    form's stages; it stages each block's 64-lag windows now): one
+    explicit-form launch per tracked channel-second, the truths at second
+    2, the NL-403 run against the CPU over 3 s (the first second with
+    reports).  Both forms at NL 65, 201 and 403 against their plain
+    versions and float64 (within 1e-5 of the row maximum), timed beside
+    their bounds and ``torch.matmul``; the explicit form's launches
+    deterministic; ``lag_bank_correlate_channels`` at NL 403 one launch
+    with each channel's bits;
+W2. ``dllpll --group 1, 7, 120``: 120, 18 and 1 window-form launches per
+    tracked second, the truths, the rows against the main path's;
+W3. ``goranging --f64`` (the plain chain in complex128 on the card) and
+    ``ranging --f64 --op -v`` on the GoRanging capture's first 4 s: each
+    channel's median delay within 0.01 sample and df within 1 Hz of its
+    truth (godual's coarse df of its bin label), and on a 1-s prefix card
+    and CPU within 1e-6 sample; ``goranging --fast --f64`` prints its
+    float32-ingest warning and meets the truths;
+W4. ``goranging --remote --foffset 20000 --nint 2``, plain and ``--fast``,
+    on a copy whose channel 1 is moved 20 kHz: on the moved truth, plain
+    and ``--fast`` epoch for epoch (indice identical, delays within 1e-4
+    sample), plain card against CPU on a 1-s prefix; ``goranging --nint 2
+    --fast`` on the truths and against the CPU;
+W5. ``batch --remote`` over phase B's moved OP loopback and OP's remote
+    capture: the default station picks ``*_2.bin``, its ``remoteclaudio``
+    archive equals ``claudio.process_file(remote=True, ranging=True)`` (the
+    chain ``batch`` runs; the ``claudio --remote`` verb searches the remote
+    window instead, recorded) and lies on the truth;
+W6. ``monitor --channels 1 --epochs 50 --serve --serve-host 127.0.0.1`` on
+    that loopback grown one second per second (4 s), with ``monitor
+    --connect`` consumers in subprocesses (rows; ``--plot --plot-file``
+    when matplotlib imports): a row per epoch, the consumer's rows equal,
+    the median delay within 0.01 sample, ``monitor --once`` on the
+    finished file the same rows;
+W7. 1000 kcps (L = 500 000): a 4-s dual-channel capture through
+    ``goranging --fast`` and ``ranging`` (truths; card against CPU on a
+    1-s prefix) and a 34-s single-channel one through ``claudio`` and
+    ``batch`` (the verb's production 30-s hunt skip: an 8-s file would be
+    "not found"; truths, the batch archive equal to the verb's, card
+    against CPU on a 4-s prefix); ``claudio --fs 1e7`` (L = 400 000, a
+    2e7-bin hunt past ``torch.nanquantile``'s 2^24 limit) on a 34-s
+    capture (truths; the hunt's first block card against CPU); an 18-bit
+    code through ``goranging --fast``.
+
 It prints the card's name and power limit (``nvidia-smi``), a line of
 numbers per slice (``{"ranging": ...}``, ``{"batch": ...}``,
-``{"parity": ...}`` and ``{"dllpll_modes": ...}`` among them), one
-``{"kernels": [...]}`` line (the window form's launches on phase D's runs
-among them), and as
+``{"parity": ...}``, ``{"dllpll_modes": ...}`` and ``{"walk": ...}``
+among them), one ``{"kernels": [...]}`` line (the window form's launches
+on phase D's runs, and phase W's launches and shapes, among them), and as
 its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch files go to the git-ignored ``amaranth_twstft_tpu_torch/build/``.
@@ -348,6 +401,22 @@ D_DOP_SPAN = 600.0
 D_FRANGE = 800.0
 D_CARRIER_HZ = FS / 5  # D3's real-sample carrier
 D_SLOW_CHIP_RATE = 1e6  # D4's second geometry: L = 500 000, 10 codes per second
+# phase W: the device options no earlier phase passed (ROADMAP's modes walk)
+W_SECONDS = 4  # each run's depth (the truths at second 3), unless stated
+W_NLAGS = (32, 100)  # dllpll --nlag on the bank: NL 65 and 201
+W_GROUPS = (1, 7, 120)  # dllpll --group: 120, 18 and 1 launches per second
+W_KERNEL_NLAG = 201  # the window form also at NL 403, on the NL-201 run's obs
+W_HOST_NLAGS = (32, 100, 201)  # dllpll --host --nlag: NL 65, 201 and 403
+W_HOST_SECONDS = 3  # the host receiver reports first at second 2
+W_F64_TOL = 1e-5  # lag-bank kernel against float64, of the row maximum
+W_F64_DELAY_TOL = 1e-6  # samples: the complex128 chains, card against CPU
+W_FOFFSET_HZ = 20e3  # W4: channel 1 moved into the pre-pass window at --foffset
+W_NINT = 2  # W4: a grid of 5 points per sample
+W_MON_SECONDS = 4  # W6: seconds appended to the tailed file, one per second
+W_MON_EPOCHS = 50  # W6: two 1-s appends per batch
+W_SLOW_CHIP_RATE = 1e6  # W7: L = 500 000, 10 codes per second
+W_FAST_FS = 1e7  # W7: 4 samples per chip, L = 400 000, a 2e7-bin claudio hunt
+W_OTHER_BITLEN = 18  # W7: an 18-bit m-sequence (period 262 143 > 100 000 chips)
 
 
 def log(msg: str) -> None:
@@ -551,20 +620,42 @@ def counted_steps(sink: list):
         boundary.make_ranging_step = orig
 
 
-def run_verb(argv: list[str]) -> tuple[str, float]:
+def run_verb(argv: list[str], err: list | None = None) -> tuple[str, float]:
     """A ``twstft-torch`` verb in-process; raises unless it exits 0.
-    Returns its standard output and wall time."""
+    Returns its standard output and wall time; appends its standard
+    error to ``err`` when given."""
     from amaranth_twstft_tpu_torch import cli
 
-    stdout = io.StringIO()
+    stdout, stderr = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(io.StringIO()):
+    with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
         rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"{' '.join(argv)} exited {rc}")
+    if err is not None:
+        err.append(stderr.getvalue())
     return stdout.getvalue(), wall
+
+
+def kept_verb(module, name: str, argv: list[str], err: list | None = None):
+    """:func:`run_verb` with ``module.name`` wrapped to keep what the
+    verb's call of it returns.  Returns that result, the verb's standard
+    output and its wall time."""
+    kept: dict = {}
+    orig = getattr(module, name)
+
+    def keep(*a, **kw):
+        kept["out"] = orig(*a, **kw)
+        return kept["out"]
+
+    setattr(module, name, keep)
+    try:
+        text, wall = run_verb(argv, err)
+    finally:
+        setattr(module, name, orig)
+    return kept["out"], text, wall
 
 
 def run_dllpll(work: str, truths: dict, cap: str, dev, kept_reports=None):
@@ -721,20 +812,22 @@ def check_truths(reports: dict, truths: dict,
     return locked, ok, worst_df, worst_gd
 
 
-def synthesize_ranging(dev, seed: int, code_path: str, path: str) -> dict:
+def synthesize_ranging(dev, seed: int, code_path: str, path: str,
+                       seconds: int = GR_SECONDS, chip_rate: float = CHIP_RATE) -> dict:
     """Write the GoRanging capture: channel c carries the code delayed by
     ``delays[c]`` samples (circularly, by an FFT phase ramp, as
     ``models/emitter`` does), at ``dopplers[c]`` Hz, plus noise; built on
     the card one second at a time.  Returns the truths."""
     from amaranth_twstft_tpu_torch.ops.lfsr import read_prn_file
 
-    L = CODE_LEN * int(FS // CHIP_RATE)
+    spc = int(FS // chip_rate)
+    L = read_prn_file(code_path).size * spc
     rng = np.random.default_rng(seed)
     delays = rng.integers(1000, L - 1000, 2) + rng.uniform(0.05, 0.95, 2)
     dops = rng.uniform(-3000.0, 3000.0, 2)
     phases = rng.uniform(0.0, 1.0, 2)
     code = torch.from_numpy(
-        np.repeat(read_prn_file(code_path).astype(np.float64) * 2 - 1, 2)).to(dev)
+        np.repeat(read_prn_file(code_path).astype(np.float64) * 2 - 1, spc)).to(dev)
     k = torch.fft.fftfreq(L, device=dev, dtype=torch.float64)
     ramp = torch.exp(-2j * math.pi * k[None] * torch.from_numpy(delays).to(dev)[:, None])
     waves = torch.fft.ifft(torch.fft.fft(code)[None] * ramp, dim=-1)
@@ -743,7 +836,7 @@ def synthesize_ranging(dev, seed: int, code_path: str, path: str) -> dict:
     t = torch.arange(fs, device=dev, dtype=torch.float64)
     frame = torch.empty((fs, 4), dtype=torch.int16, device=dev)
     with open(path, "wb") as f:
-        for s0 in range(0, GR_SECONDS * fs, fs):
+        for s0 in range(0, seconds * fs, fs):
             tt = t + s0
             idx = torch.remainder(tt.long(), L)
             for c in range(2):
@@ -784,8 +877,10 @@ def run_goranging_cli(cap: str, code: str, out_mat: str, dev, mode: str = "--fas
     return kept["out"], wall
 
 
-def delays_samples(ch: dict) -> np.ndarray:
-    return (ch["indice"].astype(np.float64) + ch["correction"]) / 3.0
+def delays_samples(ch: dict, grid: int = 3) -> np.ndarray:
+    """Delays in samples of a ranging result on a grid of ``grid`` = 2 nint
+    + 1 points per sample."""
+    return (ch["indice"].astype(np.float64) + ch["correction"]) / grid
 
 
 def traced(fn, reps: int):
@@ -1032,7 +1127,7 @@ def goranging_phase(work: str, dev, seed: int) -> tuple[tuple, dict]:
 
 def synthesize_single(dev, seed: int, code_path: str, delay: float,
                       doppler: float, amplitude: float, path: str, seconds: int,
-                      fs: float) -> None:
+                      fs: float, chip_rate: float = CHIP_RATE) -> None:
     """Write a single-channel sc16 capture: the code of ``code_path``
     delayed by ``delay`` samples (circularly, by an FFT phase ramp), at
     ``doppler`` Hz with a random phase and ``amplitude``, plus noise;
@@ -1040,7 +1135,7 @@ def synthesize_single(dev, seed: int, code_path: str, delay: float,
     from amaranth_twstft_tpu_torch.ops.lfsr import read_prn_file
 
     chips = read_prn_file(code_path).astype(np.float64) * 2 - 1
-    code = torch.from_numpy(np.repeat(chips, int(fs // CHIP_RATE))).to(dev)
+    code = torch.from_numpy(np.repeat(chips, int(fs // chip_rate))).to(dev)
     L = code.numel()
     k = torch.fft.fftfreq(L, device=dev, dtype=torch.float64)
     wave = torch.fft.ifft(torch.fft.fft(code) * torch.exp(-2j * math.pi * k * delay))
@@ -1112,23 +1207,12 @@ def run_claudio_cli(cap: str, code: str, site: str, ch: str, dev):
     result dict and the call's wall time."""
     from amaranth_twstft_tpu_torch.models import claudio
 
-    kept = {}
-    orig = claudio.process_file
-
-    def keep(*a, **kw):
-        kept["out"] = orig(*a, **kw)
-        return kept["out"]
-
     argv = ["claudio", cap, code, "--remote" if ch == "_1" else "--local",
             "--device", str(dev)] + (["--op"] if site == "OP" else [])
-    claudio.process_file = keep
-    try:
-        _, wall = run_verb(argv)
-    finally:
-        claudio.process_file = orig
-    if kept.get("out") is None:
+    out, _, wall = kept_verb(claudio, "process_file", argv)
+    if out is None:
         raise RuntimeError(f"claudio {cap}: already done")
-    return kept["out"], wall
+    return out, wall
 
 
 def tracked_delays(out: dict) -> np.ndarray:
@@ -1452,7 +1536,8 @@ def sc16_seconds(cap: str, n: int, nobs: int):
 def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
     """Steps 16-20: ``dllpll --host --serve`` on a production-geometry
     capture of 8 emissions; returns the numbers of the ``{"host": ...}``
-    line and the explicit-form entries of the kernels line."""
+    line, the explicit-form entries of the kernels line and the capture
+    with its truths (phase W runs on it, then deletes it)."""
     from amaranth_twstft_tpu_torch import cli
     from amaranth_twstft_tpu_torch.models import dllpll
     from amaranth_twstft_tpu_torch.ops import lagbank
@@ -1658,9 +1743,9 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
         caf_parts[name] = {"ms": ms_f, "device_ms": dev_ms, "device_ops": ops}
         log(f"  {name} (1 x {nobs} complex64, {len(shifts)} hypotheses): {ms_f:.4f} ms "
             f"per call (CUDA events), device {dev_ms} ms in {ops} device ops (profiler)")
-    os.remove(cap)
     del obs, obs2, w, o257, w257, kern, plain, last, d, fcode, code3
     return {
+        "capture": (cap, truths),
         "host": {
             "seconds": HOST_SECONDS, "channels": len(truths), "wall_s": wall,
             "process_second_wall_s": walls, "caf_search_ms": caf_ms,
@@ -2320,20 +2405,11 @@ def run_ranging_cli(cap: str, code: str, dev, extra: tuple = ()):
     ``godual.process_file``'s dict, the step's call times and the wall."""
     from amaranth_twstft_tpu_torch.models import godual
 
-    kept, calls = {}, []
-    orig = godual.process_file
-
-    def keep(*a, **kw):
-        kept["out"] = orig(*a, **kw)
-        return kept["out"]
-
-    godual.process_file = keep
-    try:
-        with counted_steps(calls):
-            _, wall = run_verb(["ranging", cap, code, "--device", str(dev), *extra])
-    finally:
-        godual.process_file = orig
-    return kept["out"], calls, wall
+    calls: list = []
+    with counted_steps(calls):
+        out, _, wall = kept_verb(godual, "process_file",
+                                 ["ranging", cap, code, "--device", str(dev), *extra])
+    return out, calls, wall
 
 
 def copy_prefix(src: str, dst: str, n_frames: int, channels: int = 2) -> None:
@@ -2362,7 +2438,8 @@ def shifted_copy(src: str, dst: str, seconds: int, shift_hz: float, channels: in
             g.write(x.cpu().numpy().tobytes())
 
 
-def check_ranging(what: str, out: dict, truths: list, fine: bool) -> dict:
+def check_ranging(what: str, out: dict, truths: list, fine: bool,
+                  L: int = CODE_LEN * int(FS // CHIP_RATE)) -> dict:
     """Each channel's median delay within ``GR_DELAY_TOL`` of its truth and
     every epoch's df within ``GR_DF_TOL``: of the truth when the fine
     frequency refined it; else of the coarse estimate's target.  The
@@ -2371,10 +2448,9 @@ def check_ranging(what: str, out: dict, truths: list, fine: bool) -> dict:
     df off the reference's inclusive linspace (``godual_ranging.m:73``),
     whose label for bin i lies i fs / (L (L - 1)) above the bin's
     frequency: the target is that label, halved.  ``truths``: (delay,
-    Doppler) per channel."""
+    Doppler) per channel; ``L`` the code's samples."""
     from amaranth_twstft_tpu_torch.ops.fftutils import fftfreq_shifted
 
-    L = CODE_LEN * int(FS // CHIP_RATE)
     bins = np.fft.fftshift(np.fft.fftfreq(L, 1.0 / FS))
     labels = fftfreq_shifted(L, FS)
     errs = {}
@@ -2678,7 +2754,8 @@ def batch_phase(root: str, dev, gr_code: str, kept: dict) -> dict:
         raise RuntimeError(f"batch --chain claudio over a done capture: {rep}")
     log(f"  claudio: {name} put back is skipped (its archive exists) and stays in place")
     out["claudio"]["resume_skipped"] = [name]
-    os.remove(cap)
+    os.makedirs(os.path.join(root, "walk"), exist_ok=True)
+    os.replace(cap, os.path.join(root, "walk", name))  # for W5 and W6
 
     # -- B4. process_directory: pattern, ranging, no gzip, no move, a keyword
     t0 = time.perf_counter()
@@ -2702,7 +2779,7 @@ def batch_phase(root: str, dev, gr_code: str, kept: dict) -> dict:
         f"verb archive in {n_fields} fields, nothing gzipped or moved")
     out["process_directory"] = {"wall_s": wall, "mat_fields": n_fields,
                                 "processed": [os.path.basename(p) for p in rep.processed]}
-    os.remove(rcap)
+    os.replace(rcap, os.path.join(root, "walk", remote_name))  # for W5
     return out
 
 
@@ -2768,34 +2845,43 @@ def dllpll_verb(work: str, name: str, cap: str, truths: dict, dev, *extra: str,
             "stderr": stderr.getvalue(), "wall": wall}
 
 
+def rows_vs(what: str, rows: dict, ref: dict, seconds: int) -> dict:
+    """A dllpll run's printed rows against another run's over the first
+    ``seconds``: the same rows, ``cnt`` identical, fc within HOST_CPU_FC_HZ
+    and gd within HOST_CPU_GD_NS (step 18's tolerance); records whether the
+    printed values are equal."""
+    want = {k: v for k, v in ref.items() if k[0] < seconds}
+    if not want or set(rows) != set(want):
+        raise RuntimeError(f"{what}: rows differ ({len(rows)} / {len(want)})")
+    worst_fc = worst_gd = 0.0
+    for k, (fc, cnt, gd) in want.items():
+        got = rows[k]
+        if got[1] != cnt:
+            raise RuntimeError(f"{what}: cnt {got[1]} / {cnt} at {k}")
+        worst_fc = max(worst_fc, abs(got[0] - fc))
+        worst_gd = max(worst_gd, abs(got[2] - gd))
+    if worst_fc > HOST_CPU_FC_HZ or worst_gd > HOST_CPU_GD_NS:
+        raise RuntimeError(f"{what}: fc {worst_fc} Hz, gd {worst_gd} ns")
+    same = all(rows[k] == v for k, v in want.items())
+    log(f"  {what}: {len(want)} rows, cnt identical, max |fc| diff {worst_fc:.2e} Hz, "
+        f"max |gd| diff {worst_gd:.2e} ns; printed values equal: {same}")
+    return {"rows": len(want), "max_fc_diff_hz": worst_fc, "max_gd_diff_ns": worst_gd,
+            "identical": same}
+
+
 def card_vs_cpu(what: str, card: dict, cpu: dict) -> dict:
     """Step 18's comparison for a dllpll run on the card against the same
-    verb on the CPU over its first seconds: the same reports, ``cnt``
-    identical, fc within HOST_CPU_FC_HZ and gd within HOST_CPU_GD_NS, and
-    the CPU's ``rxcomplex.log`` lines the card's first lines."""
+    verb on the CPU over its first seconds: :func:`rows_vs` (the same
+    reports, ``cnt`` identical, fc within HOST_CPU_FC_HZ and gd within
+    HOST_CPU_GD_NS) and the CPU's ``rxcomplex.log`` lines the card's first
+    lines."""
     seconds = 1 + max(k[0] for k in cpu["rows"]) if cpu["rows"] else 0
-    want = {k for k in card["rows"] if k[0] < seconds}
-    if not cpu["rows"] or want != set(cpu["rows"]):
-        raise RuntimeError(f"{what} card vs CPU: reports differ ({len(want)} / "
-                           f"{len(cpu['rows'])})")
-    worst_fc = worst_gd = 0.0
-    for k, (fc, cnt, gd) in cpu["rows"].items():
-        g = card["rows"][k]
-        if g[1] != cnt:
-            raise RuntimeError(f"{what} card vs CPU: cnt {g[1]} / {cnt} at {k}")
-        worst_fc = max(worst_fc, abs(g[0] - fc))
-        worst_gd = max(worst_gd, abs(g[2] - gd))
-    if worst_fc > HOST_CPU_FC_HZ or worst_gd > HOST_CPU_GD_NS:
-        raise RuntimeError(f"{what} card vs CPU: fc {worst_fc} Hz, gd {worst_gd} ns")
+    vs = rows_vs(f"{what} card vs the port on the CPU over the first {seconds} s "
+                 f"({cpu['wall']:.1f} s on the CPU)", cpu["rows"], card["rows"], seconds)
     if card["log"][: len(cpu["log"])] != cpu["log"]:
         raise RuntimeError(f"{what} card vs CPU: rxcomplex.log lines differ")
-    log(f"  {what} card vs the port on the CPU over the first {D_CPU_SECONDS} s "
-        f"({cpu['wall']:.1f} s on the CPU): {len(cpu['rows'])} rows, cnt identical, "
-        f"max |fc| diff {worst_fc:.2e} Hz, max |gd| diff {worst_gd:.2e} ns, the same "
-        f"{len(cpu['log'])} rxcomplex.log lines")
-    return {"rows": len(cpu["rows"]), "max_fc_diff_hz": worst_fc,
-            "max_gd_diff_ns": worst_gd, "log_lines": len(cpu["log"]),
-            "cpu_wall_s": cpu["wall"]}
+    log(f"  {what} card vs CPU: the same {len(cpu['log'])} rxcomplex.log lines")
+    return {**vs, "log_lines": len(cpu["log"]), "cpu_wall_s": cpu["wall"]}
 
 
 def truth_gate(what: str, rows: dict, truths: dict, second: int) -> dict:
@@ -3330,6 +3416,755 @@ def parity_phase(work: str, dev) -> dict:
     return out
 
 
+# -- phase W: the device options no earlier phase passed ----------------------
+def lag_bounds(nbytes: float, flops: float) -> dict:
+    """The card's least time for a lag bank: its bytes over the memory rate
+    and its 3xTF32 products over the TF32 peak, the larger of the two."""
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * 3 * flops / PEAK_TF32_FLOPS
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes_ms": bytes_ms, "bound_tf32x3_ms": ops_ms, "bytes": nbytes}
+
+
+def walk_window_shape(lb: dict) -> dict:
+    """The window form at one of W1's launch shapes: against its plain
+    version (``compare_lag_banks``) and float64 (within W_F64_TOL of the
+    row maximum), timed beside its plain version, ``torch.matmul`` of the
+    same product and its bounds."""
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    obs, wav_ext, nlag, scale = lb["obs"], lb["wav_ext"], lb["nlag"], lb["power_scale"]
+    G, _, P, K = obs.shape
+    nl = 2 * nlag + 1
+    what = f"W1 window form at (G, P, K, NL) = ({G}, {P}, {K}, {nl})"
+    kern = lagbank.lag_bank_windows(obs, wav_ext, nlag, scale)
+    plain = lagbank.lag_bank_windows_plain(obs, wav_ext, nlag, scale)
+    abs_err, rel_err, ph_err = compare_lag_banks(what, kern, plain)
+    ref64 = lagbank.lag_bank_windows_plain(obs.double(), wav_ext.double(), nlag, scale)
+    k64, p64 = lagbank.lag_bank_errors(kern, ref64), lagbank.lag_bank_errors(plain, ref64)
+    del ref64, kern, plain
+    if k64[0] > W_F64_TOL or k64[1] > W_F64_TOL:
+        raise RuntimeError(f"{what}: float64 errors {k64}")
+    ms = cuda_ms(lambda: lagbank.lag_bank_windows(obs, wav_ext, nlag, scale), 10)
+    plain_ms = cuda_ms(lambda: lagbank.lag_bank_windows_plain(obs, wav_ext, nlag, scale), 3,
+                       warmup=1)
+    w_mat = wav_ext.unfold(-1, K, 1).flip(-2).transpose(-1, -2).contiguous()
+    obs2 = obs.reshape(G, 2 * P, K)
+    library_ms = cuda_ms(lambda: torch.matmul(obs2, w_mat), 5)
+    del w_mat, obs2
+    b = lag_bounds(4.0 * (obs.numel() + wav_ext.numel() + 4 * G * P * nl),
+                   2.0 * 2 * G * P * nl * K)
+    log(f"  {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+        f"{library_ms:.4f} ms (CUDA events); bytes floor {b['bound_bytes_ms']:.4f} ms "
+        f"({b['bytes']:.3e} B), 3xTF32 {b['bound_tf32x3_ms']:.4f} ms -> "
+        f"{100 * b['bound_ms'] / ms:.1f}% of the bound; float64 err {k64[0]:.3e} of the "
+        f"row max, phase {k64[1]:.3e} cycles (fp32 plain {p64[0]:.3e}, {p64[1]:.3e})")
+    return {"form": "window", "shape": [G, P, K, nl], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **b, "max_abs_err": abs_err,
+            "max_err_over_row_max": rel_err, "max_phase_err_cycles": ph_err,
+            "f64_err": k64[0], "f64_phase_err_cycles": k64[1], "plain_f64_err": p64[0],
+            "plain_f64_phase_err_cycles": p64[1]}
+
+
+def walk_explicit_shape(obs: torch.Tensor, w: torch.Tensor) -> dict:
+    """The explicit form at one of W1's host launch shapes, (2, C, K) x (K,
+    NL): against its plain version and float64 (within W_F64_TOL of the
+    row maximum), two launches the same bits, timed (CUDA events and the
+    profiler's device time) beside its plain version, ``torch.matmul`` and
+    its bounds."""
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    _, C, K = obs.shape
+    nl = w.shape[1]
+    what = f"W1 explicit form at (2, {C}, {K}) x ({K}, {nl})"
+    kern = lagbank.lag_bank_correlate(obs, w)
+    again = lagbank.lag_bank_correlate(obs, w)
+    if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+        raise RuntimeError(f"{what}: two launches differ")
+    plain = lagbank.lag_bank_plain(obs, w)
+    abs_err, rel_err, ph_err = compare_lag_banks(what, kern, plain)
+    ref64 = lagbank.lag_bank_plain(obs.double(), w.double())
+    k64, p64 = lagbank.lag_bank_errors(kern, ref64), lagbank.lag_bank_errors(plain, ref64)
+    del ref64, kern, again, plain
+    if k64[0] > W_F64_TOL or k64[1] > W_F64_TOL:
+        raise RuntimeError(f"{what}: float64 errors {k64}")
+    ms = cuda_ms(lambda: lagbank.lag_bank_correlate(obs, w), 20)
+    device_ms, device_ops, _ = profile_device(lambda: lagbank.lag_bank_correlate(obs, w), 10)
+    plain_ms = cuda_ms(lambda: lagbank.lag_bank_plain(obs, w), 10)
+    obs2 = obs.reshape(2 * C, K)
+    library_ms = cuda_ms(lambda: torch.matmul(obs2, w), 10)
+    b = lag_bounds(4.0 * (obs.numel() + w.numel() + 2 * C * nl), 2.0 * 2 * C * nl * K)
+    log(f"  {what}: kernel {ms:.4f} ms (CUDA events), device {device_ms} ms in "
+        f"{device_ops} kernels (profiler), plain {plain_ms:.4f} ms, torch.matmul "
+        f"{library_ms:.4f} ms; bytes floor {b['bound_bytes_ms']:.4f} ms "
+        f"({b['bytes']:.3e} B), 3xTF32 {b['bound_tf32x3_ms']:.4f} ms -> "
+        f"{100 * b['bound_ms'] / ms:.1f}% of the bound; two launches the same bits; "
+        f"float64 err {k64[0]:.3e} of the row max, phase {k64[1]:.3e} cycles (fp32 plain "
+        f"{p64[0]:.3e}, {p64[1]:.3e})")
+    return {"form": "explicit", "shape": [2, C, K, nl], "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, **b, "max_abs_err": abs_err,
+            "max_err_over_row_max": rel_err, "max_phase_err_cycles": ph_err,
+            "f64_err": k64[0], "f64_phase_err_cycles": k64[1], "plain_f64_err": p64[0],
+            "plain_f64_phase_err_cycles": p64[1], "deterministic": True}
+
+
+def walk_channels_shape(obs: torch.Tensor, w: torch.Tensor) -> dict:
+    """``lag_bank_correlate_channels`` (the sharded lag-bank step's launch)
+    over two channels at the host's NL-403 shape: one launch of the
+    explicit form, each channel's bits those of its own
+    ``lag_bank_correlate``, timed."""
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    obs_c = torch.stack([obs, obs.flip(-1)])
+    w_c = torch.stack([w, w.roll(1, 0)])
+    before = lagbank.lag_bank_correlate.launches
+    power, phase = lagbank.lag_bank_correlate_channels(obs_c, w_c)
+    if lagbank.lag_bank_correlate.launches != before + 1:
+        raise RuntimeError("lag_bank_correlate_channels: not one launch")
+    for i in range(2):
+        own = lagbank.lag_bank_correlate(obs_c[i], w_c[i])
+        if not (torch.equal(power[i], own[0]) and torch.equal(phase[i], own[1])):
+            raise RuntimeError(f"lag_bank_correlate_channels: channel {i} differs")
+    ms = cuda_ms(lambda: lagbank.lag_bank_correlate_channels(obs_c, w_c), 10)
+    _, C, P, K = obs_c.shape
+    nl = w.shape[1]
+    b = lag_bounds(4.0 * (obs_c.numel() + w_c.numel() + 2 * C * P * nl),
+                   2.0 * 2 * C * P * nl * K)
+    log(f"  W1 lag_bank_correlate_channels over {C} channels of (2, {P}, {K}) x ({K}, {nl}): "
+        f"one launch, each channel's bits its own launch's; {ms:.4f} ms (bytes floor "
+        f"{b['bound_bytes_ms']:.4f} ms)")
+    del obs_c, w_c, power, phase
+    return {"form": "explicit_channels", "shape": [C, 2, P, K, nl], "ms": ms, **b}
+
+
+def w1_w2_bank(work: str, cap: str, truths: dict, dev, main_rows: dict) -> dict:
+    """W1 (the bank) and W2: ``dllpll --nlag`` and ``--group`` on the main
+    path's capture and 120 channels, each against the truths at second
+    W_SECONDS - 1 and against the main path's (nlag 28, group 8) rows;
+    then the window form at the new launch shapes."""
+    from amaranth_twstft_tpu_torch.models import tracker
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    out: dict = {"nlag": {}, "group": {}, "launches": {}}
+    n_chan = len(truths)
+    tracked = W_SECONDS - 1
+    inputs: dict = {}
+    orig = tracker.lag_bank_windows
+    for opt, values in (("--nlag", W_NLAGS), ("--group", W_GROUPS)):
+        for v in values:
+            kept: dict = {}
+
+            def keep(obs, wav_ext, nlag, power_scale=0.5, _k=kept):
+                _k.update(obs=obs, wav_ext=wav_ext, nlag=nlag, power_scale=power_scale)
+                return orig(obs, wav_ext, nlag, power_scale)
+
+            name = f"w_{opt[2:]}{v}"
+            tracker.lag_bank_windows = keep
+            lagbank.lag_bank_kernel.launches = 0
+            try:
+                run = dllpll_verb(work, name, cap, truths, dev, opt, str(v), "--seconds",
+                                  str(W_SECONDS))
+            finally:
+                tracker.lag_bank_windows = orig
+            launches = lagbank.lag_bank_kernel.launches
+            group = v if opt == "--group" else 8
+            want = math.ceil(n_chan / group) * tracked
+            what = f"W{1 if opt == '--nlag' else 2} dllpll {opt} {v}"
+            log(f"{what}: {W_SECONDS} s of {n_chan} channels in {run['wall']:.3f} s; "
+                f"{launches} window-form launches ({launches / tracked:g} per tracked "
+                f"second), last launch (G, P, K, NL) = {tuple(kept['obs'].shape[:1])} x "
+                f"{tuple(kept['obs'].shape[2:])}, NL {2 * kept['nlag'] + 1}")
+            if launches != want:
+                raise RuntimeError(f"{what}: {launches} window-form launches, want {want}")
+            gate = truth_gate(what, run["rows"], truths, W_SECONDS - 1)
+            vs = rows_vs(f"{what} against the main path's rows (--nlag 28 --group 8)",
+                         run["rows"], main_rows, W_SECONDS)
+            out[opt[2:]][str(v)] = {"wall_s": run["wall"], "launches": launches,
+                                    "launches_per_s": launches / tracked, **gate,
+                                    "vs_main": vs}
+            out["launches"][name] = launches
+            if opt == "--nlag":
+                inputs[2 * v + 1] = kept
+            else:
+                kept.clear()
+    # the window form at NL 65 and 201 on the runs' last launch, and at 403
+    # on the NL-201 run's observations with the replica extended by 201 lags
+    lb201 = inputs[2 * W_NLAGS[-1] + 1]
+    n = W_NLAGS[-1]
+    wav = lb201["wav_ext"][:, n : lb201["obs"].shape[-1] + n]
+    big = W_KERNEL_NLAG
+    inputs[2 * big + 1] = dict(lb201, nlag=big,
+                               wav_ext=torch.cat([wav[:, -big:], wav, wav[:, :big]], 1))
+    out["kernel"] = [dict(walk_window_shape(inputs[nl]),
+                          launches=out["launches"].get(f"w_nlag{(nl - 1) // 2}", 0))
+                     for nl in sorted(inputs)]
+    return out
+
+
+def w1_host(work: str, cap: str, truths: dict, dev) -> dict:
+    """W1 (the host receiver): ``dllpll --host --nlag`` 32, 100 and 201 on
+    the host cell's 8 channels, W_HOST_SECONDS each: one explicit-form
+    launch per tracked channel-second, the truths at the last second, the
+    NL-403 run against the CPU; then the explicit form at the runs' last
+    launch shapes and ``lag_bank_correlate_channels`` at NL 403."""
+    from amaranth_twstft_tpu_torch.models import dllpll
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    out: dict = {"nlag": {}, "launches": {}}
+    inputs: dict = {}
+    orig = dllpll.lag_bank_correlate
+    for nlag in W_HOST_NLAGS:
+        kept: dict = {}
+
+        def keep(obs_ri, wav_lags, _k=kept):
+            _k.update(obs=obs_ri, w=wav_lags)
+            return orig(obs_ri, wav_lags)
+
+        dllpll.lag_bank_correlate = keep
+        lagbank.lag_bank_correlate.launches = 0
+        lagbank.lag_bank_kernel.launches = 0
+        try:
+            run = dllpll_verb(work, f"w_host{nlag}", cap, truths, dev, "--host", "--nlag",
+                              str(nlag), "--seconds", str(W_HOST_SECONDS))
+        finally:
+            dllpll.lag_bank_correlate = orig
+        launches = lagbank.lag_bank_correlate.launches
+        want = len(truths) * (W_HOST_SECONDS - 1)
+        what = f"W1 dllpll --host --nlag {nlag}"
+        log(f"{what}: {W_HOST_SECONDS} s of {len(truths)} channels in {run['wall']:.3f} s; "
+            f"{launches} explicit-form launches at NL {2 * nlag + 1}")
+        if launches != want or lagbank.lag_bank_kernel.launches != want:
+            raise RuntimeError(f"{what}: {launches} explicit-form launches, "
+                               f"{lagbank.lag_bank_kernel.launches} of the kernel, want {want}")
+        gate = truth_gate(what, run["rows"], truths, W_HOST_SECONDS - 1)
+        entry = {"wall_s": run["wall"], "launches": launches, **gate}
+        if nlag == W_HOST_NLAGS[-1]:
+            cpu = dllpll_verb(work, f"w_host{nlag}_cpu", cap, truths, "cpu", "--host",
+                              "--nlag", str(nlag), "--seconds", str(D_CPU_SECONDS))
+            entry["vs_cpu"] = card_vs_cpu(what, run, cpu)
+        out["nlag"][str(nlag)] = entry
+        out["launches"][f"w_host{nlag}"] = launches
+        inputs[2 * nlag + 1] = kept
+    out["kernel"] = [dict(walk_explicit_shape(inputs[nl]["obs"], inputs[nl]["w"]),
+                          launches=out["launches"][f"w_host{(nl - 1) // 2}"])
+                     for nl in sorted(inputs)]
+    big = inputs[max(inputs)]
+    out["kernel"].append(walk_channels_shape(big["obs"], big["w"]))
+    out["stages_at_nl57"] = explicit_stages_at_57(inputs[min(inputs)])
+    return out
+
+
+def explicit_stages_at_57(x: dict) -> dict:
+    """The explicit form's two stage layouts at the host receiver's NL 57
+    on the same lags (the NL-65 inputs' middle 57): whole matrix rows (a
+    pitch of 57, the receiver's launch) and the blocks' 64-lag windows (a
+    pitch of 100 takes them); each against the plain version, device time
+    by the profiler."""
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    obs = x["obs"].clone()  # lag_bank_kernel takes 16-byte-aligned rows only
+    _, C, K = obs.shape
+    w57 = x["w"][:, 4:61].contiguous()
+    plain = lagbank.lag_bank_plain(obs, w57)
+    out = {}
+    for name, w in (("whole_rows", w57), ("windows", torch.nn.functional.pad(w57, (0, 43)))):
+        pitch = w.shape[1]
+
+        def fn(w=w, pitch=pitch):
+            return lagbank.lag_bank_kernel(obs, w, G=1, P=C, K=K, NL=57,
+                                           obs_strides=(0, C * K, K),
+                                           w_layout=(0, pitch, 1, 0, K * pitch),
+                                           power_scale=0.5)
+
+        got = fn()
+        compare_lag_banks(f"W1 explicit form at NL 57, pitch {pitch} ({name})",
+                          (got[0][0], got[1][0]), plain)
+        out[f"{name}_device_ms"] = profile_device(fn, 20)[0]
+    log(f"  W1 explicit form at NL 57: whole-row stages {out['whole_rows_device_ms']} ms, "
+        f"64-lag window stages {out['windows_device_ms']} ms of device time (profiler)")
+    return out
+
+
+def check_goranging(what: str, out: dict, truths: list, grid: int = 3) -> dict:
+    """Each channel's median delay within GR_DELAY_TOL and its df within
+    GR_DF_TOL of its truth; ``truths``: (delay, Doppler) per channel."""
+    errs = {}
+    for c, (delay, dop) in enumerate(truths):
+        ch = f"ch{c + 1}"
+        d_err = float(np.median(delays_samples(out[ch], grid)) - delay)
+        df_err = float(abs(out["df"][c] - dop))
+        log(f"  {what} {ch}: {len(out[ch]['indice'])} epochs, median delay err "
+            f"{d_err:+.5f} sample, |df - truth| {df_err:.4f} Hz")
+        if abs(d_err) > GR_DELAY_TOL or df_err > GR_DF_TOL:
+            raise RuntimeError(f"{what} {ch}: truth check failed")
+        errs[ch] = {"delay_err_samples": d_err, "df_err_hz": df_err}
+    return errs
+
+
+def epochs_vs(what: str, a: dict, b: dict, grid: int = 3, tol: float = 1e-4,
+              same_indice: bool = True) -> dict:
+    """Two ranging results epoch for epoch, each channel that ``b`` holds:
+    the same epochs, indice identical (unless ``same_indice`` is off),
+    delays within ``tol`` sample; records the largest delay difference and
+    whether the per-epoch dfs are equal."""
+    worst = 0.0
+    same_df = True
+    for ch in ("ch1", "ch2"):
+        if b.get(ch) is None:
+            continue
+        ia, ib = np.asarray(a[ch]["indice"]), np.asarray(b[ch]["indice"])
+        if ia.shape != ib.shape or (same_indice and not np.array_equal(ia, ib)):
+            raise RuntimeError(f"{what} {ch}: indice differs")
+        worst = max(worst, float(np.abs(delays_samples(a[ch], grid)
+                                        - delays_samples(b[ch], grid)).max()))
+        same_df &= bool(np.array_equal(np.asarray(a[ch]["df"], np.float64),
+                                       np.asarray(b[ch]["df"], np.float64)))
+    log(f"  {what}: {'indice identical, ' if same_indice else ''}max delay diff "
+        f"{worst:.3e} sample (tolerance {tol:g}); df equal: {same_df}")
+    if worst > tol:
+        raise RuntimeError(f"{what}: delays differ by {worst}")
+    return {"max_delay_diff_samples": worst, "df_equal": same_df}
+
+
+def w3_w4_ranging(work: str, cap: str, code: str, truth: dict, dev) -> dict:
+    """W3 (``--f64``) and W4 (``goranging --remote --foffset --nint``) on
+    the GoRanging capture's first W_SECONDS; "against the CPU" runs the
+    same argv on a 1-s prefix on the card and on the CPU."""
+    from amaranth_twstft_tpu_torch import pipeline
+    from amaranth_twstft_tpu_torch.models import godual, goranging
+
+    fs = int(FS)
+    cap4, pre = os.path.join(work, "walk_gr.bin"), os.path.join(work, "walk_gr_1s.bin")
+    copy_prefix(cap, cap4, W_SECONDS * fs)
+    copy_prefix(cap, pre, fs)
+    truths = list(zip(truth["delay"], truth["doppler"]))
+    out: dict = {}
+    card = ["--device", str(dev)]
+
+    def on_prefix(module, name, argv, tol, grid=3):
+        got = {d: kept_verb(module, name, [argv[0], pre, *argv[1:], "--device", d])
+               for d in (str(dev), "cpu")}
+        vs = epochs_vs(f"W3-W4 {' '.join(a for a in argv if a != code)} card vs CPU, "
+                       f"1-s prefix", got[str(dev)][0],
+                       got["cpu"][0], grid, tol)
+        vs["cpu_wall_s"] = got["cpu"][2]
+        return vs
+
+    # -- W3. --f64: complex128 on the card ----------------------------------
+    g64, _, wall = kept_verb(goranging, "process_file",
+                             ["goranging", cap4, code, "--f64", *card])
+    log(f"W3 goranging --f64 (the plain chain, complex128 on the card): {W_SECONDS} s "
+        f"in {wall:.3f} s")
+    out["goranging_f64"] = {"wall_s": wall,
+                            "errors": check_goranging("W3 goranging --f64", g64, truths),
+                            "vs_cpu": on_prefix(goranging, "process_file",
+                                                ["goranging", code, "--f64"],
+                                                W_F64_DELAY_TOL)}
+    r64, _, wall = kept_verb(godual, "process_file",
+                             ["ranging", cap4, code, "--f64", "--op", "-v", *card])
+    log(f"W3 ranging --f64 --op -v (godual's host branch, complex128 on the card): "
+        f"{W_SECONDS} s in {wall:.3f} s")
+    out["ranging_f64"] = {"wall_s": wall,
+                          "errors": check_ranging("W3 ranging --f64 --op -v", r64, truths,
+                                                  fine=False),
+                          "vs_cpu": on_prefix(godual, "process_file",
+                                              ["ranging", code, "--f64", "--op", "-v"],
+                                              W_F64_DELAY_TOL)}
+    err: list = []
+    f64f, _, wall = kept_verb(pipeline, "process_capture_overlapped",
+                              ["goranging", cap4, code, "--fast", "--f64", *card], err)
+    if "forcing ingest_dtype=float32" not in err[0]:
+        raise RuntimeError(f"goranging --fast --f64 printed no float32 warning: {err[0]!r}")
+    log(f"W3 goranging --fast --f64: the float32-ingest warning, {W_SECONDS} s in "
+        f"{wall:.3f} s")
+    out["goranging_fast_f64"] = {
+        "wall_s": wall, "warning": True,
+        "errors": check_goranging("W3 goranging --fast --f64", f64f, truths)}
+
+    # -- W4. --remote --foffset --nint ---------------------------------------
+    rcap, rpre = os.path.join(work, "walk_remote.bin"), os.path.join(work, "walk_remote_1s.bin")
+    shifted_copy(cap, rcap, W_SECONDS, W_FOFFSET_HZ, 2, dev)
+    copy_prefix(rcap, rpre, fs)
+    grid = 2 * W_NINT + 1
+    opts = ["--remote", "--foffset", repr(W_FOFFSET_HZ), "--nint", str(W_NINT)]
+    r_truth = [(truth["delay"][0], truth["doppler"][0] + W_FOFFSET_HZ)]
+    plain, _, pwall = kept_verb(goranging, "process_file",
+                                ["goranging", rcap, code, *opts, *card])
+    fast, _, fwall = kept_verb(pipeline, "process_capture_overlapped",
+                               ["goranging", rcap, code, *opts, "--fast", *card])
+    log(f"W4 goranging {' '.join(opts)} on {W_SECONDS} s with channel 1 moved by "
+        f"{W_FOFFSET_HZ:g} Hz: plain {pwall:.3f} s, --fast {fwall:.3f} s")
+    if plain["ch2"] is not None or fast["ch2"] is not None:
+        raise RuntimeError("W4: --remote processed channel 2")
+    out["remote"] = {
+        "plain_wall_s": pwall, "fast_wall_s": fwall,
+        "plain": check_goranging("W4 plain", plain, r_truth, grid),
+        "fast": check_goranging("W4 --fast", fast, r_truth, grid),
+        "plain_vs_fast": epochs_vs("W4 plain vs --fast", plain, fast, grid),
+    }
+    got = {d: kept_verb(goranging, "process_file", ["goranging", rpre, code, *opts,
+                                                    "--device", d])[0]
+           for d in (str(dev), "cpu")}
+    out["remote"]["vs_cpu"] = epochs_vs("W4 plain card vs CPU, 1-s prefix", got[str(dev)],
+                                        got["cpu"], grid)
+    n2, _, wall = kept_verb(pipeline, "process_capture_overlapped",
+                            ["goranging", cap4, code, "--nint", str(W_NINT), "--fast", *card])
+    log(f"W4 goranging --nint {W_NINT} --fast: {W_SECONDS} s in {wall:.3f} s")
+    out["nint_fast"] = {
+        "wall_s": wall, "errors": check_goranging(f"W4 --nint {W_NINT} --fast", n2, truths,
+                                                  grid),
+        "vs_cpu": on_prefix(pipeline, "process_capture_overlapped",
+                            ["goranging", code, "--nint", str(W_NINT), "--fast"], 1e-4, grid)}
+    for f in (cap4, pre, rcap, rpre):
+        os.remove(f)
+    return out
+
+
+def w5_batch_remote(root: str, dev, kept: dict) -> dict:
+    """W5: ``batch --remote`` over a directory holding OP's loopback moved
+    into the ranging window (phase B's copy) and OP's remote capture: the
+    default station picks ``*_2.bin``; the archive (``remoteclaudio``)
+    equals ``claudio.process_file(remote=True, ranging=True)`` on the same
+    file, the chain ``batch`` runs (both packages pass ``ranging=True``),
+    and lies on the truth; the ``claudio --remote`` verb (``ranging=False``,
+    the remote window) is run on it too and recorded."""
+    import gzip
+
+    import scipy.io as sio
+
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, SignalConfig, StationConfig
+    from amaranth_twstft_tpu_torch.models import claudio
+
+    wdir = os.path.join(root, "walk")
+    name = next(f for f in sorted(os.listdir(wdir)) if f.endswith("_2.bin"))
+    other = next(f for f in sorted(os.listdir(wdir)) if f.endswith("_1.bin"))
+    code9 = kept["codes"]["OP"]
+    ref_dir = os.path.join(root, "walk_ref")
+    os.makedirs(ref_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    # process_directory's own arguments: ProcessingConfig() and the default
+    # station (both packages)
+    ref = claudio.process_file(os.path.join(wdir, name), code9, SignalConfig(),
+                               ProcessingConfig(), StationConfig(), remote=True,
+                               ranging=True, out_dir=ref_dir, device=dev)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    verb, _, verb_wall = kept_verb(claudio, "process_file",
+                                   ["claudio", os.path.join(wdir, name), code9, "--remote",
+                                    "--op", "--device", str(dev)])
+    os.remove(verb["mat_path"])
+    rep_out, wall = run_verb(["batch", wdir, code9, "--remote", "--device", str(dev)])
+    rep = json.loads(rep_out.strip().splitlines()[-1])
+    if rep != {"processed": [os.path.join(wdir, name)], "skipped": [], "failed": []} \
+            or not os.path.exists(os.path.join(wdir, other)):
+        raise RuntimeError(f"W5 batch --remote: {rep}")
+    gz = os.path.join(wdir, "remoteclaudio" + name.replace(".bin", ".mat.gz"))
+    bare = gunzipped(gz)
+    n_fields = mat_fields_equal(bare, ref["mat_path"])
+    os.remove(bare)
+    with gzip.open(gz) as f:
+        m = sio.loadmat(f)
+    _, delay, dop, _ = kept["truths"][("OP", "_2")]
+    tracked = m["indice1"].ravel() + m["correction1"].ravel() / 3.0
+    d_err = float(np.median(tracked) - folded_delay(delay))
+    df_err = float(np.abs(m["df"].ravel() - (dop + B_RANGING_SHIFT_HZ)).max())
+    log(f"W5 batch --remote: wall {wall:.3f} s, processed {name} ({other} not picked); "
+        f"its remoteclaudio archive equals claudio.process_file(remote=True, "
+        f"ranging=True) ({ref_wall:.3f} s) in {n_fields} fields; median delay err "
+        f"{d_err:+.5f} sample, max |df - truth| {df_err:.4f} Hz; the claudio --remote "
+        f"verb ({verb_wall:.3f} s) searches the remote window and finds "
+        f"{'a line' if verb['found'] else 'nothing'} in the same file")
+    if not ref["found"] or abs(d_err) > TW_DELAY_TOL or df_err > TW_DF_TOL:
+        raise RuntimeError("W5 batch --remote: truth check failed")
+    return {"wall_s": wall, "mat_fields": n_fields, "processed": [name],
+            "not_picked": [other], "delay_err_samples": d_err, "df_err_hz": df_err,
+            "remote_verb_found": bool(verb["found"]),
+            "capture": os.path.join(wdir, "donetw", name)}
+
+
+def w6_monitor(work: str, cap: str, code: str, delay: float, dev) -> dict:
+    """W6: ``monitor --channels 1 --epochs 50 --serve --serve-host`` on a
+    single-channel capture that a writer grows one second per second, with
+    ``monitor --connect`` consumers in subprocesses (one printing rows,
+    one with ``--plot --plot-file`` when matplotlib imports); then
+    ``monitor --once`` on the finished file."""
+    import importlib.util
+
+    from amaranth_twstft_tpu_torch import cli
+
+    fs, epochs = int(FS), W_MON_SECONDS * round(CHIP_RATE / CODE_LEN)
+    L = CODE_LEN * int(FS // CHIP_RATE)
+    grow = os.path.join(work, "walk_grow.bin")
+    png = os.path.join(work, "walk_monitor.png")
+    open(grow, "wb").close()
+    port = free_port()
+    plot = importlib.util.find_spec("matplotlib") is not None
+    stdout = io.StringIO()
+    procs: dict = {}
+    appended: list[float] = []
+    errors: list[BaseException] = []
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def consumer(*extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "amaranth_twstft_tpu_torch", "monitor", "--connect",
+             f"127.0.0.1:{port}", "--timeout", "30", *extra],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def wait_for(text: str, seconds: float) -> None:
+        deadline = time.monotonic() + seconds
+        while text not in stdout.getvalue():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the monitor never printed {text!r}")
+            time.sleep(0.05)
+
+    def feeder():
+        try:
+            wait_for("# serving on", 60.0)
+            procs["rows"] = consumer()
+            if plot:
+                procs["plot"] = consumer("--plot", "--plot-file", png)
+            wait_for("# epoch ch", 60.0)
+            with open(cap, "rb") as src, open(grow, "ab") as dst:
+                t_start = time.monotonic()
+                for k in range(W_MON_SECONDS):
+                    time.sleep(max(0.0, t_start + k - time.monotonic()))
+                    dst.write(src.read(fs * 4))
+                    dst.flush()
+                    appended.append(time.monotonic())
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    common = [grow, code, "--channels", "1", "--epochs", str(W_MON_EPOCHS),
+              "--device", str(dev)]
+    th = threading.Thread(target=feeder, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["monitor", *common, "--serve", str(port), "--serve-host",
+                           "127.0.0.1", "--serve-min-clients", str(1 + plot),
+                           "--timeout", "3"])
+        wall = time.perf_counter() - t0
+        th.join(timeout=60.0)
+        outs = {k: p.communicate(timeout=60) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rc != 0 or th.is_alive() or errors:
+        raise RuntimeError(f"W6 monitor exited {rc}; the feeder thread: {errors}")
+    if any(p.returncode != 0 for p in procs.values()):
+        raise RuntimeError(f"W6 monitor --connect exited "
+                           f"{[p.returncode for p in procs.values()]}: {outs}")
+    printed = [ln for ln in stdout.getvalue().splitlines() if not ln.startswith("#")]
+    consumed = [ln for ln in outs["rows"][0].splitlines() if not ln.startswith("#")]
+    got = [int(r.split()[0]) for r in printed]
+    if got != list(range(epochs)) or any(r.split()[1] != "0" for r in printed):
+        raise RuntimeError(f"W6 monitor printed {len(printed)} rows, want one per "
+                           f"epoch 0..{epochs - 1} of channel 0")
+    if consumed != printed:
+        raise RuntimeError("W6 the --connect consumer's rows differ from the printed rows")
+    dl = np.array([float(r.split()[2]) for r in printed])
+    err = (float(np.median(dl)) - delay + L / 2) % L - L / 2
+    if abs(err) > GR_DELAY_TOL:
+        raise RuntimeError(f"W6 monitor median delay err {err}")
+    once_out, once_wall = run_verb(["monitor", *common, "--once"])
+    once = [ln for ln in once_out.splitlines() if not ln.startswith("#")]
+    if once != printed:
+        raise RuntimeError("W6 monitor --once on the finished file printed other rows")
+    png_bytes = os.path.getsize(png) if plot and os.path.exists(png) else 0
+    if plot and not png_bytes:
+        raise RuntimeError("W6 monitor --connect --plot wrote no snapshot")
+    log(f"W6 monitor --channels 1 --epochs {W_MON_EPOCHS} --serve --serve-host 127.0.0.1 "
+        f"on a file grown one second per second: {len(printed)} rows (one per epoch), "
+        f"verb wall {wall:.3f} s; the --connect consumer printed the same rows; median "
+        f"delay err {err:+.5f} sample; monitor --once on the finished file ({once_wall:.3f} "
+        f"s) printed the same rows; matplotlib "
+        + (f"imports: --connect --plot --plot-file wrote {png_bytes} B"
+           if plot else "does not import: --plot* not run"))
+    for f in (grow, png):
+        if os.path.exists(f):
+            os.remove(f)
+    return {"rows": len(printed), "wall_s": wall, "delay_err_samples": err,
+            "once_wall_s": once_wall, "consumer_rows_equal": True,
+            "matplotlib": plot, "plot_file_bytes": png_bytes}
+
+
+def w7_geometries(work: str, dev, seed: int) -> dict:
+    """W7: off-default code geometries through the verbs: 1000 kcps (a
+    dual-channel capture through ``goranging --fast`` and ``ranging``, a
+    single-channel one through ``claudio`` and ``batch``), ``claudio --fs
+    1e7`` (a 2e7-bin hunt) and an 18-bit code through ``goranging --fast``."""
+    from amaranth_twstft_tpu_torch import pipeline
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig, SignalConfig, StationConfig
+    from amaranth_twstft_tpu_torch.models import claudio, godual
+    from amaranth_twstft_tpu_torch.models.godual import build_replica
+    from amaranth_twstft_tpu_torch.ops import boundary, doppler
+    from amaranth_twstft_tpu_torch.ops.lfsr import find_mseq_taps, write_prn_file
+    from amaranth_twstft_tpu_torch.utils import io as sc16
+
+    out: dict = {}
+    fs = int(FS)
+    card = ["--device", str(dev)]
+    code = os.path.join(work, "walk_code17.bin")
+    write_prn_file(code, BIT_LEN, CODE_LEN, 9)
+    rng = np.random.default_rng(seed + 13)
+
+    # -- 1000 kcps, dual channel: goranging --fast and ranging ----------------
+    slow = ["--chip-rate", repr(W_SLOW_CHIP_RATE)]
+    L = CODE_LEN * int(FS // W_SLOW_CHIP_RATE)
+    cap, pre = os.path.join(work, "walk_slow.bin"), os.path.join(work, "walk_slow_1s.bin")
+    truth = synthesize_ranging(dev, seed + 7, code, cap, W_SECONDS, W_SLOW_CHIP_RATE)
+    truths = list(zip(truth["delay"], truth["doppler"]))
+    copy_prefix(cap, pre, fs)
+    fast, _, fwall = kept_verb(pipeline, "process_capture_overlapped",
+                               ["goranging", cap, code, "--fast", *slow, *card])
+    rg, _, rwall = kept_verb(godual, "process_file", ["ranging", cap, code, *slow, *card])
+    log(f"W7 {W_SLOW_CHIP_RATE / 1e3:g} kcps (L = {L}), {W_SECONDS} s dual-channel: "
+        f"goranging --fast {fwall:.3f} s, ranging {rwall:.3f} s")
+    entry = {"fast_wall_s": fwall, "ranging_wall_s": rwall,
+             "fast": check_goranging("W7 1000 kcps goranging --fast", fast, truths),
+             "ranging": check_ranging("W7 1000 kcps ranging", rg, truths, fine=False, L=L)}
+    got = {d: kept_verb(pipeline, "process_capture_overlapped",
+                        ["goranging", pre, code, "--fast", *slow, "--device", d])[0]
+           for d in (str(dev), "cpu")}
+    entry["fast_vs_cpu"] = epochs_vs("W7 1000 kcps goranging --fast card vs CPU, 1-s prefix",
+                                     got[str(dev)], got["cpu"])
+    card_rg = kept_verb(godual, "process_file", ["ranging", pre, code, *slow, *card])[0]
+    cpu_rg = kept_verb(godual, "process_file", ["ranging", pre, code, *slow,
+                                                "--device", "cpu"])[0]
+    entry["ranging_vs_cpu_host_branch"] = epochs_vs(
+        "W7 1000 kcps ranging card (bound step) vs the CPU's host branch, 1-s prefix",
+        card_rg, cpu_rg, tol=GR_DELAY_TOL, same_indice=False)
+    out["slow_dual"] = entry
+    for f in (cap, pre):
+        os.remove(f)
+
+    # -- 1000 kcps and 10 MS/s, single channel: claudio (and batch) -----------
+    block_s = ProcessingConfig(conjugate_data=True).block_seconds
+    for key, sig_fs, chip_rate, argv in (
+            ("slow_claudio", FS, W_SLOW_CHIP_RATE, slow),
+            ("fs1e7_claudio", W_FAST_FS, CHIP_RATE, ["--fs", repr(W_FAST_FS)])):
+        cfg = SignalConfig(fs=sig_fs, chip_rate=chip_rate, code_len=CODE_LEN,
+                           bit_len=BIT_LEN)
+        Lc = cfg.samples_per_code
+        half_bin = sig_fs / (sig_fs * block_s) / 2
+        dop = round(rng.uniform(-3000.0, 3000.0) / half_bin) * half_bin
+        delay = float(rng.integers(Lc // 20, Lc - Lc // 20)) + rng.uniform(0.1, 0.4)
+        d_verb, d_batch = os.path.join(work, f"walk_{key}"), os.path.join(work, f"walk_{key}_b")
+        for d in (d_verb, d_batch):
+            os.makedirs(d, exist_ok=True)
+        cap = os.path.join(d_verb, "1755400000_2.bin")
+        t0 = time.perf_counter()
+        synthesize_single(dev, seed + 17, code, delay, dop, TW_LOOPBACK_AMPLITUDE, cap,
+                          TW_SECONDS, sig_fs, chip_rate)
+        t_syn = time.perf_counter() - t0
+        res, _, wall = kept_verb(claudio, "process_file", ["claudio", cap, code, *argv, *card])
+        dl = tracked_delays(res) if res["found"] else np.zeros(0)
+        d_err = float(np.median(dl) - folded_delay(delay)) if len(dl) else float("nan")
+        df_err = float(np.abs(res["df"] - dop).max()) if res["found"] else float("nan")
+        n_iq = sc16.n_samples_sc16(cap, channels=1)
+        log(f"W7 claudio {' '.join(argv)} (L = {Lc}, {TW_SECONDS} s single-channel, "
+            f"{os.path.getsize(cap) / 1e6:.0f} MB written in {t_syn:.1f} s): verb wall "
+            f"{wall:.3f} s -> {n_iq / res['timing']['total_s'] / 1e6:.2f} IQ MS/s; "
+            f"{len(dl)} codes, median delay err {d_err:+.5f} sample (folded truth "
+            f"{folded_delay(delay):.4f}), max |df - truth {dop:g}| {df_err:.4f} Hz, "
+            f"moved {res.get('moved')}")
+        if not res["found"] or not abs(d_err) <= TW_DELAY_TOL or not df_err <= TW_DF_TOL:
+            raise RuntimeError(f"W7 claudio {' '.join(argv)}: truth check failed")
+        entry = {"wall_s": wall, "samples_per_code": Lc, "codes": len(dl),
+                 "delay_err_samples": d_err, "df_err_hz": df_err,
+                 "iq_msps": n_iq / res["timing"]["total_s"] / 1e6}
+        if key == "slow_claudio":
+            # batch over a directory holding the same file
+            os.link(cap, os.path.join(d_batch, os.path.basename(cap)))
+            rep_out, bwall = run_verb(["batch", d_batch, code, *argv, *card])
+            rep = json.loads(rep_out.strip().splitlines()[-1])
+            if rep["processed"] != [os.path.join(d_batch, os.path.basename(cap))] \
+                    or rep["failed"]:
+                raise RuntimeError(f"W7 batch {' '.join(argv)}: {rep}")
+            bare = gunzipped(os.path.join(
+                d_batch, os.path.basename(res["mat_path"]) + ".gz"))
+            entry["batch"] = {"wall_s": bwall,
+                              "mat_fields": mat_fields_equal(bare, res["mat_path"])}
+            log(f"  W7 batch {' '.join(argv)}: wall {bwall:.3f} s, its archive equals the "
+                f"claudio verb's in {entry['batch']['mat_fields']} fields")
+            # the card against the CPU on a 4-s prefix (no hunt skip)
+            prefix = os.path.join(d_verb, "prefix_2.bin")
+            copy_prefix(cap, prefix, TW_PREFIX_SECONDS * fs, channels=1)
+            runs = {}
+            for nm, d in (("card", dev), ("cpu", "cpu")):
+                od = os.path.join(d_verb, f"prefix_{nm}")
+                os.makedirs(od, exist_ok=True)
+                runs[nm] = claudio.process_file(
+                    prefix, code, cfg, ProcessingConfig(conjugate_data=True, skip_seconds=0.0),
+                    StationConfig(), ranging=True, out_dir=od, device=d, transfer="int8")
+            diff = float(np.abs(tracked_delays(runs["card"])
+                                - tracked_delays(runs["cpu"])).max())
+            if not np.array_equal(runs["card"]["df"], runs["cpu"]["df"]) \
+                    or runs["card"]["moved"] != runs["cpu"]["moved"] \
+                    or diff > TW_CPU_DELAY_TOL:
+                raise RuntimeError(f"W7 claudio {' '.join(argv)} card vs CPU: delay {diff}")
+            log(f"  W7 claudio {' '.join(argv)} card vs CPU ({TW_PREFIX_SECONDS}-s prefix, "
+                f"no hunt skip, resident int8): df and moved identical, max delay diff "
+                f"{diff:.2e} sample")
+            entry["vs_cpu_max_delay_diff"] = diff
+        else:
+            # the hunt's first block (after the 30-s skip), on the resident
+            # hunt's inputs (claudio._hunt), card against CPU
+            proc = ProcessingConfig(conjugate_data=True)
+            block = int(sig_fs * block_s)
+            raw, _ = sc16.read_raw16(cap, int(proc.skip_seconds * sig_fs), block)
+            q8, _ = claudio._quantize_q8(raw)
+            dc = raw[:Lc].astype(np.float32)
+            dc -= dc.mean(axis=0, keepdims=True)
+            fcode_ri = boundary.pack_complex(build_replica(code, cfg, proc,
+                                                           conjugate=False).fcode)
+            mask = doppler.window_mask(block, sig_fs, *claudio.claudio_df_window(
+                StationConfig(op=False), True))
+            hunt = {}
+            for d in (str(dev), "cpu"):
+                t0 = time.perf_counter()
+                kb, n_above = doppler.search_df_candidates_ri(
+                    *(torch.from_numpy(a).to(d) for a in (q8, dc, fcode_ri)), sig_fs,
+                    torch.from_numpy(mask).to(d), threshold=proc.df_threshold)
+                hunt[d] = (int(kb), int(n_above))
+                hunt[d + "_s"] = time.perf_counter() - t0
+            line = float(np.fft.fftshift(np.fft.fftfreq(block, 1 / sig_fs))[hunt["cpu"][0]])
+            log(f"  W7 the hunt over the {block}-bin block at {proc.skip_seconds:g} s: card "
+                f"{hunt[str(dev)]} ({hunt[str(dev) + '_s']:.2f} s), CPU {hunt['cpu']} "
+                f"({hunt['cpu_s']:.2f} s) as (kbon, n_above); kbon's bin {line:.2f} Hz, "
+                f"twice the truth {2 * dop:.2f} Hz")
+            if hunt[str(dev)] != hunt["cpu"] or hunt["cpu"][0] < 0:
+                raise RuntimeError(f"W7 hunt card {hunt[str(dev)]} vs CPU {hunt['cpu']}")
+            entry["hunt"] = {"bins": block, "kbon": hunt["cpu"][0],
+                             "n_above": hunt["cpu"][1], "card_s": hunt[str(dev) + "_s"],
+                             "cpu_s": hunt["cpu_s"]}
+            del q8, dc, raw
+        out[key] = entry
+        shutil.rmtree(d_verb)
+        shutil.rmtree(d_batch)
+
+    # -- another code: an 18-bit m-sequence through goranging --fast ----------
+    taps18 = find_mseq_taps(W_OTHER_BITLEN, 1)[0]
+    code18 = os.path.join(work, "walk_code18.bin")
+    write_prn_file(code18, W_OTHER_BITLEN, CODE_LEN, taps18)
+    cap = os.path.join(work, "walk_code18_cap.bin")
+    truth = synthesize_ranging(dev, seed + 19, code18, cap, 2)
+    o18, _, wall = kept_verb(pipeline, "process_capture_overlapped",
+                             ["goranging", cap, code18, "--fast", "--bitlen",
+                              str(W_OTHER_BITLEN), "--taps", str(taps18), *card])
+    log(f"W7 goranging --fast --bitlen {W_OTHER_BITLEN} --taps {taps18}: 2 s in {wall:.3f} s")
+    out["code18"] = {"taps": taps18, "wall_s": wall, "errors": check_goranging(
+        f"W7 {W_OTHER_BITLEN}-bit code", o18, list(zip(truth["delay"], truth["doppler"])))}
+    for f in (cap, code, code18):
+        os.remove(f)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -3480,12 +4315,26 @@ def main() -> int:
     modes = modes_phase(work, cap, truths, dev, args.seed, taps)
     modes["phase_s"] = time.perf_counter() - t0
     log(f"dllpll modes phase: {modes['phase_s']:.1f} s")
+
+    # -- W1-W2. dllpll --nlag and --group on the main capture ----------------
+    t0 = time.perf_counter()
+    walk = {"bank": w1_w2_bank(work, cap, truths, dev, reps)}
+    walk["bank"]["phase_s"] = time.perf_counter() - t0
+    log(f"walk W1-W2 (the bank): {walk['bank']['phase_s']:.1f} s")
     os.remove(cap)
 
     # -- 16-20. the host-sequential receiver (dllpll --host --serve) -------
     t0 = time.perf_counter()
     host = host_phase(work, dev, args.seed, taps)
     log(f"host phase: {time.perf_counter() - t0:.1f} s")
+
+    # -- W1. dllpll --host --nlag on the host capture -------------------------
+    t0 = time.perf_counter()
+    host_cap, host_truths = host.pop("capture")
+    walk["host"] = w1_host(work, host_cap, host_truths, dev)
+    walk["host"]["phase_s"] = time.perf_counter() - t0
+    os.remove(host_cap)
+    log(f"walk W1 (the host receiver): {walk['host']['phase_s']:.1f} s")
 
     # -- 7-10. the GoRanging slice -----------------------------------------
     t0 = time.perf_counter()
@@ -3516,6 +4365,12 @@ def main() -> int:
     rg = ranging_phase(work, gr_cap, gr_code, gr_truth, dev)
     rg["phase_s"] = time.perf_counter() - t0
     log(f"ranging phase: {rg['phase_s']:.1f} s")
+
+    # -- W3-W4. --f64, goranging --remote --foffset --nint ---------------------
+    t0 = time.perf_counter()
+    walk["ranging"] = w3_w4_ranging(work, gr_cap, gr_code, gr_truth, dev)
+    walk["ranging"]["phase_s"] = time.perf_counter() - t0
+    log(f"walk W3-W4 (ranging options): {walk['ranging']['phase_s']:.1f} s")
     batch_root, batch_code = batch_sources(work, gr_cap, gr_code)
     for f in (gr_cap, gr_code):
         os.remove(f)
@@ -3531,8 +4386,16 @@ def main() -> int:
     t0 = time.perf_counter()
     bt = batch_phase(batch_root, dev, batch_code, keep)
     bt["phase_s"] = time.perf_counter() - t0
-    shutil.rmtree(batch_root)
     log(f"batch phase: {bt['phase_s']:.1f} s")
+
+    # -- W5-W6. batch --remote; monitor --channels 1 --serve --connect ----------
+    t0 = time.perf_counter()
+    walk["batch_remote"] = w5_batch_remote(batch_root, dev, keep)
+    walk["monitor"] = w6_monitor(work, walk["batch_remote"].pop("capture"),
+                                 keep["codes"]["OP"], keep["truths"][("OP", "_2")][1], dev)
+    walk["batch_remote"]["phase_s"] = time.perf_counter() - t0
+    shutil.rmtree(batch_root)
+    log(f"walk W5-W6 (batch --remote, monitor): {walk['batch_remote']['phase_s']:.1f} s")
     nat["claudio_read_s"] = {k: f["timing"]["read_s"] for k, f in tw["files"].items()}
     log(f"N2 claudio raw reads through the native library: read_s "
         f"{nat['claudio_read_s']}")
@@ -3556,6 +4419,14 @@ def main() -> int:
     par["phase_s"] = time.perf_counter() - t0
     log(f"parity phase: {par['phase_s']:.1f} s")
 
+    # -- W7. off-default code geometries ---------------------------------------
+    t0 = time.perf_counter()
+    walk["geometries"] = w7_geometries(work, dev, args.seed)
+    walk["geometries"]["phase_s"] = time.perf_counter() - t0
+    walk["phase_s"] = sum(v.get("phase_s", 0.0) for v in walk.values())
+    log(f"walk W7 (code geometries): {walk['geometries']['phase_s']:.1f} s; phase W in "
+        f"all {walk['phase_s']:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"goranging": gr}))
@@ -3568,6 +4439,7 @@ def main() -> int:
     log(json.dumps({"batch": bt}))
     log(json.dumps({"parity": par}))
     log(json.dumps({"dllpll_modes": modes}))
+    log(json.dumps({"walk": walk}))
     slow = modes["mixed"]["slow_launch"]
     log(json.dumps({"kernels": [{
         "name": "lagbank",
@@ -3602,6 +4474,8 @@ def main() -> int:
         "bound_ms_slow_geometry": max(slow["bound_bytes_ms"], slow["bound_tf32x3_ms"]),
         "max_err_over_row_max_slow_geometry": slow["max_err_over_row_max"],
         "f64_err_slow_geometry": slow["f64_err"],
+        "launches_walk": {**walk["bank"]["launches"], **walk["host"]["launches"]},
+        "walk_shapes": walk["bank"]["kernel"] + walk["host"]["kernel"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -264,9 +264,16 @@ def test_production_hunt_matches_jax(amp):
 
 
 def test_search_refuses_quantile_overflow():
-    d = torch.zeros(tdop.QUANTILE_MAX_ELEMENTS + 1, dtype=torch.complex64)
-    with pytest.raises(ValueError, match="quantile"):
-        tdop.search_df_candidates(d, d[:L], d[:L], 1e5, np.ones(d.shape[0], bool))
+    """Above ``torch.nanquantile``'s 2^24 elements the search is no longer
+    refused: it takes the median by a sort and gives the JAX package's
+    ``(kbon, n_above)`` (none found on an all-zero block)."""
+    n = tdop.QUANTILE_MAX_ELEMENTS + 1
+    d = torch.zeros(n, dtype=torch.complex64)
+    mask = np.ones(n, bool)
+    got = tdop.search_df_candidates(d, d[:L], d[:L], 1e5, mask)
+    dj = jnp.zeros(n, jnp.complex64)
+    want = jdop.search_df_candidates(dj, dj[:L], dj[:L], 1e5, jnp.asarray(mask))
+    assert got == tuple(int(v) for v in want) == (-1, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -74,6 +74,9 @@ F64_GATE = 4.0
     (1, 5, 257, 2),        # K % 4 != 0: zero-padded copy; 10 of 48 rows
     (2, 7, 4099, 40),      # 81 lags: two lag blocks
     (3, 49, 2000, 8),      # 98 rows: three row blocks
+    (8, 24, 200_000, 32),  # dllpll --nlag 32: NL 65, two lag blocks
+    (8, 24, 200_000, 100),  # --nlag 100: NL 201, four lag blocks
+    (8, 24, 200_000, 201),  # --nlag 201: NL 403, seven lag blocks
 ])
 def test_window_kernel_float64_accuracy(cuda, g, p, k, nlag):
     gen = torch.Generator().manual_seed(k + nlag)
@@ -544,6 +547,9 @@ def _explicit_plain(obs, w):
     (1, 7, 4099, 81),      # 81 lags: two lag blocks
     (1, 49, 2000, 17),     # 98 rows: three row blocks
     (3, 24, 2000, 57),     # G = 3 through lag_bank_kernel
+    (1, 24, 200_000, 65),  # dllpll --host --nlag 32: the 64-lag windows
+    (1, 24, 200_000, 201),  # --nlag 100
+    (1, 24, 200_000, 403),  # --nlag 201: whole rows would not fit a block
 ])
 def test_explicit_kernel_float64_accuracy(cuda, g, p, k, nl):
     """The explicit (K, NL) form's compensated 3xTF32 products: within the
@@ -573,8 +579,9 @@ def test_explicit_kernel_float64_accuracy(cuda, g, p, k, nl):
 
 
 def test_explicit_kernel_is_deterministic(cuda):
-    """No atomics: two launches of the explicit form give the same bits."""
-    for g, p, k, nl in [(1, 24, 200_000, 57), (1, 5, 257, 57)]:
+    """No atomics: two launches of the explicit form give the same bits,
+    in both of its stage layouts (whole rows at NL 57, windows at 403)."""
+    for g, p, k, nl in [(1, 24, 200_000, 57), (1, 5, 257, 57), (1, 24, 200_000, 403)]:
         obs, w = _explicit_case(cuda, g, p, k, nl, seed=3)
         first = tlb.lag_bank_correlate(obs[0], w[0])
         second = tlb.lag_bank_correlate(obs[0], w[0])
@@ -585,11 +592,11 @@ def test_explicit_kernel_is_deterministic(cuda):
 def test_explicit_kernel_edges(cuda):
     """An exact-zero code gives exactly zero power and NaN-free results;
     obs and lag-matrix views whose data are not 16-byte aligned are copied
-    and agree with the plain version; a row pitch of 400 (a two-stage
-    ring) agrees with it too; a layout that is neither the window form's
-    nor row-major with a pitch of at least NL, or a pitch whose two-stage
-    ring exceeds a block's shared memory, makes the C entry point refuse
-    the launch."""
+    and agree with the plain version; row pitches of 400 and 1000 (whose
+    whole rows would not fit a block's shared memory: the kernel stages
+    each row's lag window) agree with it too; a layout that is neither the
+    window form's nor row-major with a pitch of at least NL makes the C
+    entry point refuse the launch."""
     obs, w = _explicit_case(cuda, 1, 5, 1000, 57, seed=13)
     obs, w = obs[0], w[0]
     obs[:, 3] = 0.0
@@ -605,22 +612,92 @@ def test_explicit_kernel_edges(cuda):
     assert obs_view.data_ptr() % 16 != 0 and w_view.data_ptr() % 16 != 0
     _close(tlb.lag_bank_correlate(obs_view, w_view), tlb.lag_bank_plain(obs_view, w_view))
     k, nl = w.shape
-    w_wide = torch.randn(k, 400, generator=gen).to(cuda)
-    wide = tlb.lag_bank_kernel(obs[None], w_wide, G=1, P=5, K=k, NL=nl,
-                               obs_strides=(0, 5 * k, k), w_layout=(0, 400, 1, 0, k * 400),
-                               power_scale=0.5)
-    plain = tlb.lag_bank_plain(obs, w_wide[:, :nl].contiguous())
-    _close((wide[0][0][keep], wide[1][0][keep]), (plain[0][keep], plain[1][keep]))
+    for pitch in (400, 1000):
+        w_wide = torch.randn(k, pitch, generator=gen).to(cuda)
+        wide = tlb.lag_bank_kernel(obs[None], w_wide, G=1, P=5, K=k, NL=nl,
+                                   obs_strides=(0, 5 * k, k),
+                                   w_layout=(0, pitch, 1, 0, k * pitch), power_scale=0.5)
+        plain = tlb.lag_bank_plain(obs, w_wide[:, :nl].contiguous())
+        _close((wide[0][0][keep], wide[1][0][keep]), (plain[0][keep], plain[1][keep]))
     before = tlb.lag_bank_kernel.launches
-    w_huge = torch.zeros(k, 1000, device=cuda)
     for w_arg, layout in [(w.T.contiguous(), (0, 1, k, 0, k * nl)),  # column-major
-                          (w, (0, nl - 1, 1, 0, k * nl)),          # pitch < NL
-                          (w_huge, (0, 1000, 1, 0, k * 1000))]:    # ring too large
+                          (w, (0, nl - 1, 1, 0, k * nl))]:         # pitch < NL
         with pytest.raises(RuntimeError, match="cudaError"):
             tlb.lag_bank_kernel(obs[None], w_arg, G=1, P=5, K=k, NL=nl,
                                 obs_strides=(0, 5 * k, k), w_layout=layout,
                                 power_scale=0.5)
     assert tlb.lag_bank_kernel.launches == before
+
+
+def test_correlate_channels_at_403_lags(cuda):
+    """``lag_bank_correlate_channels`` (the sharded lag-bank step's one
+    launch over C channels) at NL 403, where the explicit form stages each
+    block's lag windows: one launch, every channel's bits equal to its own
+    ``lag_bank_correlate``, within 1e-5 of the row maximum of float64."""
+    c, p, k, nl = 3, 24, 200_000, 403
+    obs, w = _explicit_case(cuda, c, p, k, nl, seed=21)
+    before = tlb.lag_bank_correlate.launches
+    power, phase = tlb.lag_bank_correlate_channels(obs, w)
+    assert tlb.lag_bank_correlate.launches == before + 1
+    for i in range(c):
+        own = tlb.lag_bank_correlate(obs[i], w[i])
+        assert torch.equal(power[i], own[0]) and torch.equal(phase[i], own[1])
+    ref64 = _explicit_plain(obs.double(), w.double())
+    k64 = tlb.lag_bank_errors((power, phase), ref64)
+    assert k64[0] < F64_TOL and k64[1] < F64_TOL, k64
+
+
+def test_hunt_above_quantile_limit_on_card_matches_cpu(cuda):
+    """The claudio hunt over more than 2^24 spectrum bins (a 2-s block
+    above 8.39 MS/s takes the median by a sort): the card and the CPU give
+    the same ``(kbon, n_above)``, and the line is found."""
+    from amaranth_twstft_tpu_torch.ops import doppler
+    from amaranth_twstft_tpu_torch.ops.lfsr import prn_chips
+    from amaranth_twstft_tpu_torch.ops.prn import chips_to_pm1, upsample_zoh
+
+    fs, n = 1e5, doppler.QUANTILE_MAX_ELEMENTS + (1 << 20)
+    code = chips_to_pm1(upsample_zoh(prn_chips(10, 9, 1000), 2), np.float32)
+    rng = np.random.default_rng(2)
+    t = np.arange(n)
+    dop = 2000 * fs / n  # twice it on bin 4000 of the squaring spectrum
+    x = (800 * code[t % code.size] * np.exp(2j * np.pi * dop * t / fs)
+         + 300 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    mask = doppler.window_mask(n, fs, -2000.0, 2000.0)
+    fcode = np.fft.fft(code).astype(np.complex64)
+    got = {}
+    for dev in ("cpu", cuda):
+        d = torch.from_numpy(x).to(dev)
+        got[str(dev)] = doppler.search_df_candidates(
+            d, d[: code.size], torch.from_numpy(fcode).to(dev), fs, mask)
+    assert got["cuda"] == got["cpu"]
+    assert got["cpu"][0] >= 0 and got["cpu"][1] > 0
+
+
+def test_complex128_goranging_on_card_matches_cpu(cuda, tmp_path):
+    """``goranging --f64`` without ``--fast``: the plain chain in
+    complex128 on the card (cuFFT Z2Z, the complex128 zoom products and
+    float64 SNR) against the same chain on the CPU: the same df, indice
+    identical, correction within 1e-9 sample (the complex128 bound of the
+    port against the JAX package), snr within 1e-9 of the total."""
+    from amaranth_twstft_tpu_torch.config import ProcessingConfig
+    from amaranth_twstft_tpu_torch.models import goranging
+
+    cfg, code, cap = _ranging_capture(tmp_path)
+    outs = {}
+    for dev in ("cpu", cuda):
+        outs[str(dev)] = goranging.process_file(
+            cap, code, cfg, ProcessingConfig(hamming_window=True),
+            dtype=torch.complex128, device=dev, out_mat=str(tmp_path / f"{dev}.mat"))
+    assert outs["cuda"]["df"] == outs["cpu"]["df"]
+    for ch in ("ch1", "ch2"):
+        g, c = outs["cuda"][ch], outs["cpu"][ch]
+        np.testing.assert_array_equal(g["indice"], c["indice"])
+        np.testing.assert_allclose(g["correction"], c["correction"], rtol=0, atol=1e-9)
+        tot = np.asarray(c["snr_r"]) + np.asarray(c["snr_i"])
+        for f in ("snr_r", "snr_i"):
+            assert np.all(np.abs(np.asarray(g[f]) - np.asarray(c[f])) <= 1e-9 * tot), f
+    got = outs["cuda"]["ch1"]
+    assert abs(np.median((got["indice"] + got["correction"]) / 3) - 431.4) < 0.01
 
 
 def test_run_stream_copy_stream_prefetch_identical(cuda):
