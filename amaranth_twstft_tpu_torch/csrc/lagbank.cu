@@ -64,37 +64,63 @@
 //   rows, N = NL = 57 lags, K = 200 000 samples, 13 FLOP per byte.  Its
 //   floor is reading obs (38.4 MB) and the matrix (45.6 MB) once, 0.0251
 //   ms at 3.35 TB/s; 3 x 1.094e9 tf32 FLOP take 0.0066 ms at 495
-//   TFLOP/s (fp32 FFMA, 0.0163 ms at 67 TFLOP/s, would sit too close to
-//   the floor to hide behind the copies).  So the design keeps bytes in
-//   flight:
+//   TFLOP/s.  Past 64 lags the matrix grows (322 MB at NL 403) and the
+//   floor with it.  So the design keeps bytes in flight and does the obs
+//   side once per span of lags:
 //   - split-K over chunks of `kb` samples that the Python wrapper picks
-//     (ops/lagbank.explicit_chunk) so that the grid is two blocks per SM
-//     for the whole launch: 264 chunks of 760 at the host shape;
-//   - a ring of kXS-sample stages, as deep (up to four) as two resident
-//     blocks per SM allow (explicit_ring), filled by one producer warp
-//     with `cp.async.bulk`: one 1-D copy per obs row, and the stage's
-//     matrix rows in one of two layouts (a TMA tensor map cannot take the
-//     matrix: its 228-byte row pitch is not a multiple of 16):
+//     (ops/lagbank.explicit_chunk) independently of NL, so that a lag's
+//     sum has the same K order at every NL: 264 chunks of 760 at the host
+//     shape;
+//   - a block covers a chunk and a SPAN of lags in m16 tiles: up to 4
+//     tiles with two lag warps (two blocks per SM), else up to 8 tiles
+//     with four lag warps (one block per SM), balanced spans past 128
+//     lags (NL 403: four spans of 7, 7, 7 and 5 tiles).  Each lag warp
+//     holds two m16 tiles x all six n8 obs-row tiles (48 rows) and is
+//     doubled over the two K halves of a stage, so each matrix value is
+//     split into tf32 parts once per block and each obs value once per
+//     warp for all its lag tiles; a warp past the span's lags idles (NL 65
+//     runs 6 tiles of products, not 8); a chunk's spans are neighbours in
+//     the launch, so its obs rows come from L2 after the first span reads
+//     them;
+//   - a ring of kXS-sample stages, as deep as the blocks per SM allow (up
+//     to three at two blocks per SM, four at one: explicit_ring), filled
+//     with `cp.async.bulk` by WL producer warps (a warp issued one copy
+//     per ~40 ns whatever its size on an NVIDIA H100 80GB HBM3 at 700 W,
+//     so one warp could not keep up with 112 copies a stage): one 1-D copy
+//     per obs row, and the stage's matrix rows in one of two layouts (a
+//     TMA tensor map cannot take the matrix: its 228-byte row pitch is not
+//     a multiple of 16):
 //     * whole rows: ONE copy of the stage's kXS contiguous rows, pitch
-//       w_n; taken for a block that holds every lag (NL <= 64) while its
-//       ring is at least as deep as the windows' three stages (w_n <= 99;
-//       four stages of 27 KB at the host shape, up to three in flight),
-//       since one copy per stage beats one per row;
-//     * windows: one copy per row of the block's own 64-lag window, from
-//       the 16-byte unit that holds its first lag, into a fixed pitch of
-//       kXWPitch floats (the window's first lag lands at column
+//       w_n, while one span holds every lag (NL <= 128) and its ring is as
+//       deep as the windows';
+//     * windows: one copy per row of the span's lags (512 bytes at 128
+//       lags), from the 16-byte unit that holds its first lag, into a pitch
+//       of x_pitch floats (the window's first lag lands at column
 //       (n * w_n) % 4 of stage row n, the same for rows 4 apart), so the
-//       stage no longer grows with NL or w_n: three stages of 31 KB and
-//       two blocks per SM at any NL, where whole rows of 403 lags would
-//       not fit even one block's shared memory;
-//   - A fragments (lags x samples) straight from the stage (the odd pitch
-//     of 57, or the window's offset per row, leaves few bank conflicts), B
-//     fragments from the obs rows as in the window form; lags past NL in
-//     the last m16 tile read neighbouring floats, and their rows of the
-//     result are dropped;
+//       stage does not grow with NL or w_n: any NL and pitch run;
+//   - A fragments (lags x samples) straight from the stage, B fragments
+//     from the obs rows as in the window form; lags past NL in the last
+//     m16 tile read neighbouring floats, and their rows are dropped;
 //   - each stage's chain is added to an IEEE fp32 sum per lane, in
-//     registers; the K-halves and the chunks are summed in a fixed order
-//     (the second pass), so two launches give the same bits;
+//     registers, and the two K halves in a fixed order;
+//   - ONE launch per call, whose last blocks sum the partials: every
+//     block takes a ticket when it starts (an atomic counter in the
+//     caller's workspace) and its role from it.  The first tickets are
+//     the producers, one per (chunk x span, channel, row block), which
+//     write their partial sums to the workspace and count their arrival;
+//     the last `reducers` tickets (as many as the card holds at once, so
+//     they start as the producers finish) wait for every arrival, then sum
+//     each output's partials in a fixed order (24 interleaved chunk
+//     groups, each in chunk order, then the groups in order) and apply
+//     the epilogue.  A reducer waits only for blocks with lower tickets,
+//     which have started and never wait, so the wait ends however few
+//     blocks the card runs at once (another stream's kernels, other
+//     processes).  The last reducer to finish sets the counters back to
+//     zero, so the stream's next launch (or a CUDA graph's replay) starts
+//     from zero with no host state.  The sum is spread over the reducers:
+//     one block per output tile, summing alone, would read all its chunks'
+//     partials (5.7 MB at NL 403).  No atomics touch the sums, so two
+//     launches give the same bits;
 //   - the K tail is masked in the kernel: the last rows of the matrix go
 //     by bulk copies of whole 16-byte units and at most three plain loads
 //     each, so the receiver's cached matrix is never copied per call.
@@ -112,9 +138,12 @@ struct Args {
   const float* w;
   int64_t w_g, w_n, w_l, w_off, w_len;
   int P, K, NL;
-  int kb;       // samples per block
-  int nchunk;   // ceil(K / kb)
-  float* part;  // (G, nchunk, 2, P, NL) partial sums
+  int kb;        // samples per block
+  int nchunk;    // ceil(K / kb)
+  float scale;   // of the power
+  float* part;   // (G, nchunk, 2, P, NL) partial sums
+  unsigned* ctr;  // the explicit form's counters, zero between launches
+  float* out;    // power, phase, re, im, each (G, P, NL)
 };
 
 // ---------------------------------------------------------------------
@@ -412,23 +441,35 @@ __global__ void __launch_bounds__(kWinThreads, 2)
 }
 
 // ---------------------------------------------------------------------
-// Explicit (K, NL) form: 3xTF32 mma.sync fed by a cp.async.bulk ring of
-// both operands
+// Explicit (K, NL) form: 3xTF32 mma.sync over a span of lags, fed by a
+// cp.async.bulk ring of both operands; the chunks' partials are summed in
+// the same launch by the last blocks to start
 // ---------------------------------------------------------------------
-constexpr int kXS = 64;                // samples (matrix rows) per ring stage
-constexpr int kXPart = kXS / kKSplit;  // samples per consumer warp and stage
-constexpr int kXRowStride = kXS + 4;   // conflict-free B-fragment loads
+constexpr int kXS = 64;                 // samples (matrix rows) per ring stage
+constexpr int kXHalf = kXS / 2;         // samples per K half and stage
+constexpr int kXRowStride = kXS + 4;    // conflict-free B-fragment loads
 constexpr int kXObsFloats = kRows * kXRowStride;
 constexpr int kXMaxRing = 4;
-// window layout: a row's 64 lags from the 16-byte unit holding the first
-// span at most 67 floats; 72 (8 mod 32) keeps rows 1-3 apart in banks
-constexpr int kXWPitch = 72;
-constexpr int kXRowsPerLane = kXS / 32;  // the producer's matrix rows per lane
-static_assert(kXPart % 8 == 0, "whole k8 steps per consumer warp");
-static_assert(kXS % 32 == 0, "whole matrix rows per producer lane");
-static_assert(kKSplit == 2, "one K part hands its sums to the other");
-static_assert(kRowGroups * kVals * 32 <= 2 * kXObsFloats,
-              "the K parts' exchange fits in two obs stages");
+constexpr int kXTiles = 2;              // m16 lag tiles per consumer warp
+constexpr int kXNT = kRows / 8;         // n8 obs-row tiles per consumer warp
+constexpr int kXVals = kXTiles * kXNT * 4;  // accumulators per lane
+constexpr int kXHeader = 64;            // workspace floats before the partials
+constexpr int kXGroups = 24;            // interleaved chunk groups of the sum
+constexpr int kXTeam = 6;               // warps per reduction team
+constexpr int kXBatch = 12;             // a reducing lane's loads in flight
+static_assert(kXHalf % 8 == 0, "whole k8 steps per K half");
+static_assert(kXTeam * 4 == kXGroups, "a team's lanes hold the groups of 8 outputs");
+
+// With WL lag warps a block holds a span of x_span(WL) lags (WL x 2 m16
+// tiles) and runs 2*WL consumer warps (two K halves) and WL producer
+// warps; a window stage row has x_pitch(WL) floats (the span, up to 3
+// floats before its first lag, 8 mod 32 for conflict-free A-fragment
+// loads).
+__host__ __device__ constexpr int x_span(int wl) { return 16 * kXTiles * wl; }
+__host__ __device__ constexpr int x_pitch(int wl) { return x_span(wl) + 8; }
+__host__ __device__ constexpr int x_threads(int wl) { return 32 * 3 * wl; }
+static_assert(x_threads(2) % (32 * kXTeam) == 0 && x_threads(4) % (32 * kXTeam) == 0,
+              "whole reduction teams");
 
 struct XArgs {
   const float* obs;
@@ -437,97 +478,248 @@ struct XArgs {
   int64_t w_g, w_n;
   int64_t w_lim;                // floats of each channel readable from w
   int P, K, NL;
-  int kb;       // samples per block (a multiple of 4)
-  int nchunk;   // ceil(K / kb)
-  int ring;     // ring stages, 2..kXMaxRing
-  float* part;  // (G, nchunk, 2, P, NL) partial sums
+  int kb;          // samples per block (a multiple of 4)
+  int nchunk;      // ceil(K / kb)
+  int ring;        // ring stages, 2..kXMaxRing
+  int span_tiles;  // m16 lag tiles per span
+  int nspan;       // spans of lags
+  int G;           // channels
+  int nblocks;     // producer blocks: nchunk * nspan * G * row blocks
+  int reducers;    // blocks after them that sum the partials
+  float scale;
+  float* part;     // (G, nchunk, 2, P, NL) partial sums
+  unsigned* ctr;   // [0] tickets taken, [1] producers arrived, [2] reducers
+                   // done; zero before and after each launch
+  float* out;      // power, phase, re, im, each (G, P, NL)
 };
 
-// One consumer warp's part of one explicit-form stage: kXPart / 8 k8 steps.
-//   st: this lane's B element of the stage, row (row group + n/4), sample tq
-//   wt: this lane's A element, stage row (part's first sample + tq), lag gq
-//       of the block's first m16 tile
-//   wn: the stage's row pitch (the matrix's)
-//   lim: valid samples in this part (MASK: zero the rest of A and B, whose
+// One consumer warp's K half of one explicit-form stage: kXHalf / 8 k8
+// steps over its kXTiles m16 lag tiles and all kXNT n8 obs-row tiles.
+//   st: this lane's B element of the stage, obs row gq, sample tq
+//   wt: this lane's A element, stage row (half's first sample + tq), lag
+//       gq of the warp's first m16 tile
+//   wn: the stage's row pitch
+//   lim: valid samples in this half (MASK: zero the rest of A and B, whose
 //        shared memory holds whatever an earlier stage left there)
 // A fragment of m-tile i at k8 step jj (fragment rows are lags):
 //   a0 = W[8jj + tq][16i + gq], a1 = W[8jj + tq][16i + gq + 8],
 //   a2 = W[8jj + tq + 4][16i + gq], a3 = W[8jj + tq + 4][16i + gq + 8].
+// Each obs value is split once per warp for all its lag tiles, each
+// matrix value once per block (the warps hold different lags).
 template <bool MASK>
-__device__ __forceinline__ void consume_explicit(float (&acc)[kMT][kNT][4],
-                                                 const float* __restrict__ st,
-                                                 const float* __restrict__ wt,
-                                                 int wn, int tq, int lim) {
+__device__ __forceinline__ void consume_span(float (&acc)[kXTiles][kXNT][4],
+                                             const float* __restrict__ st,
+                                             const float* __restrict__ wt,
+                                             int wn, int tq, int lim) {
 #pragma unroll
-  for (int jj = 0; jj < kXPart / 8; ++jj) {
-    const float* w0 = wt + 8 * jj * wn;
-    const float* w1 = w0 + 4 * wn;
+  for (int jj = 0; jj < kXHalf / 8; ++jj) {
     const bool ok0 = !MASK || 8 * jj + tq < lim;
     const bool ok1 = !MASK || 8 * jj + tq + 4 < lim;
-    uint32_t ab[kMT][4], as[kMT][4];
+    uint32_t bb[kXNT][2], bs[kXNT][2];
 #pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-      split_tf32(ok0 ? w0[16 * i] : 0.f, ab[i][0], as[i][0]);
-      split_tf32(ok0 ? w0[16 * i + 8] : 0.f, ab[i][1], as[i][1]);
-      split_tf32(ok1 ? w1[16 * i] : 0.f, ab[i][2], as[i][2]);
-      split_tf32(ok1 ? w1[16 * i + 8] : 0.f, ab[i][3], as[i][3]);
-    }
-    uint32_t bb[kNT][2], bs[kNT][2];
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
+    for (int n = 0; n < kXNT; ++n) {
       const float x0 = st[n * 8 * kXRowStride + 8 * jj];
       const float x1 = st[n * 8 * kXRowStride + 8 * jj + 4];
       split_tf32(ok0 ? x0 : 0.f, bb[n][0], bs[n][0]);
       split_tf32(ok1 ? x1 : 0.f, bb[n][1], bs[n][1]);
     }
+    const float* w0 = wt + 8 * jj * wn;
+    const float* w1 = w0 + 4 * wn;
+    uint32_t ab[kXTiles][4], as[kXTiles][4];
+#pragma unroll
+    for (int i = 0; i < kXTiles; ++i) {
+      split_tf32(ok0 ? w0[16 * i] : 0.f, ab[i][0], as[i][0]);
+      split_tf32(ok0 ? w0[16 * i + 8] : 0.f, ab[i][1], as[i][1]);
+      split_tf32(ok1 ? w1[16 * i] : 0.f, ab[i][2], as[i][2]);
+      split_tf32(ok1 ? w1[16 * i + 8] : 0.f, ab[i][3], as[i][3]);
+    }
     // the small cross terms first, then big*big
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+    for (int i = 0; i < kXTiles; ++i)
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int n = 0; n < kXNT; ++n)
         mma_tf32(acc[i][n], as[i][0], as[i][1], as[i][2], as[i][3], bb[n][0],
                  bb[n][1]);
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+    for (int i = 0; i < kXTiles; ++i)
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int n = 0; n < kXNT; ++n)
         mma_tf32(acc[i][n], ab[i][0], ab[i][1], ab[i][2], ab[i][3], bs[n][0],
                  bs[n][1]);
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+    for (int i = 0; i < kXTiles; ++i)
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int n = 0; n < kXNT; ++n)
         mma_tf32(acc[i][n], ab[i][0], ab[i][1], ab[i][2], ab[i][3], bb[n][0],
                  bb[n][1]);
   }
 }
 
-// Floats of one explicit-form stage's matrix rows: whole rows of pitch
-// w_n, or the block's 64-lag windows (WIN) at pitch kXWPitch.
-__host__ __device__ constexpr int64_t explicit_w_stage(bool win, int64_t w_n) {
-  return win ? (int64_t)kXS * kXWPitch : (int64_t)kXS * w_n;
+__device__ __forceinline__ void consume_half(float (&acc)[kXTiles][kXNT][4],
+                                             const float* st, const float* wt,
+                                             int wn, int tq, int lim) {
+  if (lim >= kXHalf) {
+    consume_span<false>(acc, st, wt, wn, tq, lim);
+  } else if (lim > 0) {
+    consume_span<true>(acc, st, wt, wn, tq, lim);
+  }
 }
 
-// One block per (K-chunk x lag block, channel, row block); shared memory
-// holds the barriers, the ring's matrix stages, then its obs stages.
-template <bool WIN>
-__global__ void __launch_bounds__(kWinThreads, 2)
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void team_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The epilogue of one output from its summed re and im: unfused products,
+// the same roundings as the plain version.
+__device__ __forceinline__ void store_output(float* __restrict__ out, int64_t plane,
+                                             int64_t idx, float scale, float re,
+                                             float im) {
+  out[idx] = __fmul_rn(scale, __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+  out[plane + idx] = atan2f(-im, re) / 6.28318530717958647692f;
+  out[2 * plane + idx] = re;
+  out[3 * plane + idx] = im;
+}
+
+// Reducer `reducer` of the launch's a.reducers sums the partials of the
+// outputs' tiles of 8 (tile t for t = reducer*teams + team + m*reducers*teams)
+// and applies the epilogue.  The order is fixed: chunk c goes to group
+// c % kXGroups, each group is summed in chunk order, then the groups in
+// order.  A team of kXTeam warps takes a tile: lane (o8 = lane % 8,
+// q = lane / 8) of the team's warp w sums group 4w + q of output o8, with
+// kXBatch chunks' loads in flight at once (all 11 of re and of im at the
+// host shape's 264 chunks).  `red`: shared memory for 2 * kXGroups * 8
+// floats per team.
+template <int WL>
+__device__ __forceinline__ void explicit_reduce(const XArgs& a, int reducer, float* red) {
+  constexpr int kTeams = x_threads(WL) / 32 / kXTeam;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int team = warp / kXTeam;
+  if (team >= kTeams) return;
+  const int cg = 4 * (warp % kXTeam) + (lane >> 3);
+  const int o8 = lane & 7;
+  const int64_t pl = (int64_t)a.P * a.NL;
+  const int64_t total = (int64_t)a.G * pl;
+  const int64_t chunk_floats = 2 * pl;
+  float* tr = red + team * 2 * kXGroups * 8;
+  const int64_t ntiles = (total + 7) / 8;
+  for (int64_t t = (int64_t)reducer * kTeams + team; t < ntiles;
+       t += (int64_t)a.reducers * kTeams) {
+    const int64_t o = 8 * t + o8;
+    float re = 0.f;
+    float im = 0.f;
+    if (o < total) {
+      const int64_t gi = o / pl;
+      const float* base = a.part + gi * a.nchunk * chunk_floats + (o - gi * pl);
+      // kXBatch chunks' loads in flight at once, then their sums in order
+      for (int c0 = cg; c0 < a.nchunk; c0 += kXBatch * kXGroups) {
+        float vr[kXBatch], vi[kXBatch];
+#pragma unroll
+        for (int j = 0; j < kXBatch; ++j) {
+          const int c = c0 + j * kXGroups;
+          vr[j] = c < a.nchunk ? __ldcg(base + c * chunk_floats) : 0.f;
+          vi[j] = c < a.nchunk ? __ldcg(base + c * chunk_floats + pl) : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < kXBatch; ++j) {
+          if (c0 + j * kXGroups < a.nchunk) {
+            re += vr[j];
+            im += vi[j];
+          }
+        }
+      }
+    }
+    tr[cg * 8 + o8] = re;
+    tr[(kXGroups + cg) * 8 + o8] = im;
+    team_sync(1 + team, 32 * kXTeam);
+    if (cg == 0 && o < total) {
+#pragma unroll
+      for (int k = 1; k < kXGroups; ++k) {
+        re += tr[k * 8 + o8];
+        im += tr[(kXGroups + k) * 8 + o8];
+      }
+      store_output(a.out, total, o, a.scale, re, im);
+    }
+    team_sync(1 + team, 32 * kXTeam);
+  }
+}
+
+// Floats of one explicit-form stage's matrix rows: whole rows of pitch
+// w_n, or the span's windows (WIN) at pitch x_pitch(wl).
+__host__ __device__ constexpr int64_t explicit_w_stage(bool win, int wl, int64_t w_n) {
+  return (int64_t)kXS * (win ? x_pitch(wl) : w_n);
+}
+
+// A reducer of the explicit form (ticket a.nblocks + `reducer`): waits
+// until every producer has counted its arrival (each has a lower ticket,
+// so it has started, and it never waits), sums its share of the outputs,
+// and the last reducer to finish sets the counters back to zero.
+template <int WL>
+__device__ __forceinline__ void explicit_reducer(const XArgs& a, int reducer, float* red) {
+  if (threadIdx.x == 0) {
+    while (ld_acquire(&a.ctr[1]) < (unsigned)a.nblocks) __nanosleep(32);
+  }
+  __syncthreads();
+  explicit_reduce<WL>(a, reducer, red);
+  if (threadIdx.x == 0 && atomicAdd(&a.ctr[2], 1u) == (unsigned)a.reducers - 1) {
+    // every block has taken its ticket and every producer has arrived
+    a.ctr[0] = 0;
+    a.ctr[1] = 0;
+    a.ctr[2] = 0;
+  }
+}
+
+// Tickets 0 .. nblocks-1: one producer per (K-chunk x span, channel, row
+// block), in that order; then the reducers.  Shared memory holds the
+// barriers, the ring's matrix stages, then its obs stages.
+template <int WL, bool WIN>
+__global__ void __launch_bounds__(x_threads(WL), WL <= 2 ? 2 : 1)
     lagbank_explicit_kernel(const XArgs a) {
+  constexpr int kConsumers = 2 * WL;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned s_ticket;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint64_t* empty = full + a.ring;
   const int wn = (int)a.w_n;
-  const int w_stage = (int)explicit_w_stage(WIN, a.w_n);
+  const int w_stage = (int)explicit_w_stage(WIN, WL, a.w_n);
   float* w_ring = reinterpret_cast<float*>(empty + a.ring);
   float* x_ring = w_ring + a.ring * w_stage;
 
-  // a chunk's lag blocks are neighbours in the launch order, so the
+  if (threadIdx.x == 0) {
+    // the block's place in the order of starts
+    s_ticket = atomicAdd(&a.ctr[0], 1u);
+    for (int s = 0; s < a.ring; ++s) {
+      mbar_init(&full[s], WL);  // one arrival per producer warp
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const unsigned ticket = s_ticket;
+  if (ticket >= (unsigned)a.nblocks) {
+    explicit_reducer<WL>(a, (int)(ticket - a.nblocks), w_ring);
+    return;
+  }
+
+  // a chunk's spans are neighbours in the order of tickets, so the
   // chunk's obs rows come from L2 after the first of them reads them
-  const int lblocks = (a.NL + kLags - 1) / kLags;
-  const int chunk = blockIdx.x / lblocks;
-  const int g = blockIdx.y;
-  const int r0 = blockIdx.z * kRows;
-  const int lb = (blockIdx.x % lblocks) * kLags;
+  const int nx = a.nchunk * a.nspan;
+  const int bx = (int)(ticket % nx);
+  const int chunk = bx / a.nspan;
+  const int lag0 = 16 * a.span_tiles * (bx % a.nspan);
+  const int span_lags = min(16 * a.span_tiles, a.NL - lag0);
+  const int g = (int)(ticket / nx) % a.G;
+  const int r0 = (int)(ticket / nx / a.G) * kRows;
   const int rows = min(kRows, 2 * a.P - r0);
   const int64_t k_begin = (int64_t)chunk * a.kb;
   const int len = (int)min((int64_t)a.kb, (int64_t)a.K - k_begin);
@@ -535,23 +727,25 @@ __global__ void __launch_bounds__(kWinThreads, 2)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < a.ring; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  const int kw = warp % kKSplit;  // K part of each stage
-  const int nw = warp / kKSplit;  // row group of the block
+  const int kw = warp & 1;   // K half of each stage
+  const int lw = warp >> 1;  // lag warp: m16 tiles kXTiles*lw.. of the span
   const int gq = lane >> 2;
   const int tq = lane & 3;
-  float sum[kMT][kNT][4];  // this lane's IEEE fp32 sums
+  // this warp's tiles that hold lags of the span: 0, 1 or kXTiles
+  const int nt = max(0, min(kXTiles, (span_lags + 15) / 16 - kXTiles * lw));
+  float sum[kXTiles][kXNT][4] = {};  // this lane's IEEE fp32 sums
 
-  if (warp == kConsumerWarps) {
-    // -- producer: per stage one bulk copy of the matrix rows, one per obs row
+  if (warp >= kConsumers) {
+    // -- producers: WL warps share each stage's copies.  Item q of a stage
+    //    (below kXS: a matrix row of the span's window, or in the whole-row
+    //    layout item 0, the stage's rows; from kXS: obs row q - kXS) goes to
+    //    lane q % 32 of producer warp (q / 32) % WL: one warp issued a bulk
+    //    copy per ~40 ns whatever its size (NVIDIA H100 80GB HBM3, 700 W,
+    //    tools/gpu_lagbank_probe.py), so the copies of a stage are spread
+    //    over the warps.  Each warp arrives on the stage's full barrier
+    //    once, with its own bytes.
+    constexpr int kPasses = (kXS + kRows + 32 * WL - 1) / (32 * WL);
+    const int pw = warp - kConsumers;
     const float* obs_g = a.obs + (int64_t)g * a.obs_g + k_begin;
     const float* w_g = a.w + (int64_t)g * a.w_g + k_begin * a.w_n;
     for (int step = 0; step < nsteps; ++step) {
@@ -563,101 +757,99 @@ __global__ void __launch_bounds__(kWinThreads, 2)
       const uint32_t x_bytes = 16u * (uint32_t)((lim + 3) / 4);
       const float* wsrc = w_g + (int64_t)n0 * a.w_n;
       float* wdst = w_ring + s * w_stage;
-      uint32_t w_bulk = 0;
-      if (WIN) {
-        // row r's lags [lb, lb + cnt) from the 16-byte unit holding lag
-        // lb: bulk copies of whole units inside the channel's readable
-        // floats, plain loads for the rest (only at the matrix's end)
-        const int cnt = min(kLags, a.NL - lb);
-        const int64_t first = (k_begin + n0) * a.w_n + lb;  // row 0's lag lb
-        const int64_t room = a.w_lim - (first & ~(int64_t)3);
-        uint32_t units[kXRowsPerLane];
-#pragma unroll
-        for (int j = 0; j < kXRowsPerLane; ++j) {
-          const int r = lane + 32 * j;
-          units[j] = 0;
-          if (r >= lim) continue;
-          const int64_t q = (int64_t)r * a.w_n + (first & 3);  // from the unit
-          const int64_t q0 = q & ~(int64_t)3;
-          const int64_t end = q + cnt;
-          const int64_t fit = (room - q0) / 4;
-          units[j] = (uint32_t)min((end - q0 + 3) / 4, fit);
-          float* drow = wdst + r * kXWPitch;
-          const float* srow = wsrc + r * a.w_n + lb - (q - q0);
-          for (int64_t i = 4 * (int64_t)units[j]; i < end - q0; ++i) drow[i] = srow[i];
-          w_bulk += 16u * units[j];
-        }
-        w_bulk = __reduce_add_sync(0xffffffffu, w_bulk);
-        __threadfence_block();
-        __syncwarp();
-        if (lane == 0) mbar_arrive_expect_tx(&full[s], x_bytes * rows + w_bulk);
-        __syncwarp();
-#pragma unroll
-        for (int j = 0; j < kXRowsPerLane; ++j) {
-          const int r = lane + 32 * j;
-          if (units[j] == 0) continue;
-          const int64_t q = (int64_t)r * a.w_n + (first & 3);
-          bulk_g2s(wdst + r * kXWPitch, wsrc + r * a.w_n + lb - (q & 3),
-                   16u * units[j], &full[s]);
-        }
-      } else {
-        // the stage's matrix rows end at lag NL - 1 of its last row; the
-        // bulk copy takes whole 16-byte units, plain loads the rest
-        const uint32_t w_floats = (uint32_t)((lim - 1) * wn + a.NL);
-        w_bulk = (4u * w_floats) & ~15u;
-        if (lane == 0) {
-          for (uint32_t i = w_bulk / 4; i < w_floats; ++i) wdst[i] = wsrc[i];
-          mbar_arrive_expect_tx(&full[s], x_bytes * rows + w_bulk);
-        }
-        __syncwarp();
-        if (lane == 0 && w_bulk > 0) {
-          bulk_g2s(wdst, wsrc, w_bulk, &full[s]);
-        }
-      }
       float* xdst = x_ring + s * kXObsFloats;
-      for (int r = lane; r < rows; r += 32) {
-        const int rr = r0 + r;
-        const int c = rr / a.P;
-        const int p = rr - c * a.P;
-        bulk_g2s(xdst + r * kXRowStride, obs_g + c * a.obs_c + p * a.obs_p + n0,
-                 x_bytes, &full[s]);
+      // row 0's lag lag0, from the channel's start (WIN)
+      const int64_t first = (k_begin + n0) * a.w_n + lag0;
+      const float* src[kPasses];
+      float* dst[kPasses];
+      uint32_t bytes[kPasses];
+      uint32_t total = 0;
+#pragma unroll
+      for (int m = 0; m < kPasses; ++m) {
+        const int q = lane + 32 * (pw + WL * m);
+        bytes[m] = 0;
+        src[m] = nullptr;
+        dst[m] = nullptr;
+        if (q < kXS && WIN) {
+          // row q's lags [lag0, lag0 + span_lags) from the 16-byte unit
+          // holding lag lag0: a bulk copy of the whole units inside the
+          // channel's readable floats, plain loads for the rest (only at
+          // the matrix's end)
+          if (q < lim) {
+            const int64_t qq = (int64_t)q * a.w_n + (first & 3);  // from the unit
+            const int64_t q0 = qq & ~(int64_t)3;
+            const int64_t end = qq + span_lags;
+            const int64_t fit = (a.w_lim - (first & ~(int64_t)3) - q0) / 4;
+            const uint32_t units = (uint32_t)min((end - q0 + 3) / 4, fit);
+            float* drow = wdst + q * x_pitch(WL);
+            const float* srow = wsrc + (int64_t)q * a.w_n + lag0 - (qq - q0);
+            for (int64_t i = 4 * (int64_t)units; i < end - q0; ++i) drow[i] = srow[i];
+            src[m] = srow;
+            dst[m] = drow;
+            bytes[m] = 16u * units;
+          }
+        } else if (q == 0) {
+          // one span holds every lag: the stage's matrix rows end at lag
+          // NL - 1 of its last row; the bulk copy takes whole 16-byte
+          // units, plain loads the rest
+          const uint32_t w_floats = (uint32_t)((lim - 1) * wn + a.NL);
+          bytes[m] = (4u * w_floats) & ~15u;
+          for (uint32_t i = bytes[m] / 4; i < w_floats; ++i) wdst[i] = wsrc[i];
+          src[m] = wsrc;
+          dst[m] = wdst;
+        } else if (q >= kXS && q - kXS < rows) {
+          const int rr = r0 + q - kXS;
+          const int c = rr / a.P;
+          const int p = rr - c * a.P;
+          src[m] = obs_g + c * a.obs_c + p * a.obs_p + n0;
+          dst[m] = xdst + (q - kXS) * kXRowStride;
+          bytes[m] = x_bytes;
+        }
+        total += bytes[m];
       }
+      total = __reduce_add_sync(0xffffffffu, total);
+      __threadfence_block();  // the plain stores before the arrival
+      __syncwarp();
+      if (lane == 0) mbar_arrive_expect_tx(&full[s], total);
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m < kPasses; ++m)
+        if (bytes[m] > 0) bulk_g2s(dst[m], src[m], bytes[m], &full[s]);
     }
   } else {
     // -- consumers --------------------------------------------------------
-    float acc[kMT][kNT][4];
+    float acc[kXTiles][kXNT][4];
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+    for (int i = 0; i < kXTiles; ++i)
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int n = 0; n < kXNT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] = sum[i][n][e] = 0.f;
-    const int jbeg = kw * kXPart;
+        for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+    const int jbeg = kw * kXHalf;
     // this lane's stage rows are jbeg + tq + 4m; in the window layout
-    // their lag lb lies at column ((k_begin + row) * w_n) % 4, which is
-    // (tq * w_n) % 4 since k_begin and jbeg are multiples of 4
-    const int pitch = WIN ? kXWPitch : wn;
-    const int col0 = WIN ? (int)(((int64_t)tq * a.w_n) & 3) : lb;
+    // their lag lag0 lies at column ((k_begin + row) * w_n + lag0) % 4,
+    // which is (tq * w_n) % 4 since k_begin, jbeg and lag0 are multiples of 4
+    const int pitch = WIN ? x_pitch(WL) : wn;
+    const int col0 = (WIN ? (int)(((int64_t)tq * a.w_n) & 3) : lag0) + 16 * kXTiles * lw;
     for (int step = 0; step < nsteps; ++step) {
       const int s = step % a.ring;
       mbar_wait(&full[s], (step / a.ring) & 1);
       const int lim = min(kXS, len - step * kXS) - jbeg;
-      const float* st = x_ring + s * kXObsFloats +
-                        (nw * kNT * 8 + gq) * kXRowStride + jbeg + tq;
+      const float* st = x_ring + s * kXObsFloats + gq * kXRowStride + jbeg + tq;
       const float* wt = w_ring + s * w_stage + (jbeg + tq) * pitch + col0 + gq;
-      if (lim >= kXPart) {
-        consume_explicit<false>(acc, st, wt, pitch, tq, lim);
-      } else if (lim > 0) {
-        consume_explicit<true>(acc, st, wt, pitch, tq, lim);
-      }
+      // a warp with one tile of the span's lags runs both: the second's
+      // lags are past the span and dropped, and the block's stage takes
+      // as long as its two-tile warps anyway (a separate one-tile path
+      // made nvcc drop the second tile of the two-tile warps)
+      if (nt > 0) consume_half(acc, st, wt, pitch, tq, lim);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
       // the tensor core adds with truncation: one stage's chain, then the
       // IEEE fp32 sum
 #pragma unroll
-      for (int i = 0; i < kMT; ++i)
+      for (int i = 0; i < kXTiles; ++i)
 #pragma unroll
-        for (int n = 0; n < kNT; ++n)
+        for (int n = 0; n < kXNT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             sum[i][n][e] += acc[i][n][e];
@@ -667,36 +859,41 @@ __global__ void __launch_bounds__(kWinThreads, 2)
   }
   __syncthreads();
 
-  // -- K part 1 of each row group hands its sums to K part 0 through the
-  //    obs ring (every copy has landed and been read); part 0 adds them in
+  // -- K half 1 of each lag warp hands its sums to K half 0 through the
+  //    ring (every copy has landed and been read); half 0 adds them in
   //    order and stores the block's partial
-  float* xch = x_ring + nw * kVals * 32 + lane;
-  if (warp < kConsumerWarps && kw == 1) {
+  float* xch = w_ring + lw * kXVals * 32 + lane;
+  if (warp < kConsumers && kw == 1 && nt > 0) {
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+    for (int i = 0; i < kXTiles; ++i)
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int n = 0; n < kXNT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) xch[((i * kNT + n) * 4 + e) * 32] = sum[i][n][e];
+        for (int e = 0; e < 4; ++e) xch[((i * kXNT + n) * 4 + e) * 32] = sum[i][n][e];
   }
   __syncthreads();
-  if (warp < kConsumerWarps && kw == 0) {
+  if (warp < kConsumers && kw == 0 && nt > 0) {
     const int two_p = 2 * a.P;
     float* out = a.part + ((int64_t)g * a.nchunk + chunk) * two_p * a.NL;
 #pragma unroll
-    for (int i = 0; i < kMT; ++i)
+    for (int i = 0; i < kXTiles; ++i)
 #pragma unroll
-      for (int n = 0; n < kNT; ++n)
+      for (int n = 0; n < kXNT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float v = sum[i][n][e] + xch[((i * kNT + n) * 4 + e) * 32];
+          const float v = sum[i][n][e] + xch[((i * kXNT + n) * 4 + e) * 32];
           // D fragment: row (lag) gq (+8 for e >= 2), column (obs row)
           // 2 tq + (e & 1)
-          const int l = lb + 16 * i + gq + (e >> 1) * 8;
-          const int r = r0 + nw * kNT * 8 + n * 8 + 2 * tq + (e & 1);
-          if (l < a.NL && r < two_p) out[(int64_t)r * a.NL + l] = v;
+          const int l = lag0 + 16 * (kXTiles * lw + i) + gq + (e >> 1) * 8;
+          const int r = r0 + n * 8 + 2 * tq + (e & 1);
+          if (i < nt && l < a.NL && r < two_p) __stcg(out + (int64_t)r * a.NL + l, v);
         }
+    __threadfence();
   }
+
+  // -- the block's partial is out: count its arrival for the reducers
+  __syncthreads();
+  if (threadIdx.x == 0) red_release_add(&a.ctr[1], 1u);
 }
 
 // ---------------------------------------------------------------------
@@ -765,21 +962,72 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, int (&allowed)[kMaxDevices]) 
 }
 
 // The explicit form's shared memory: the ring's barriers, matrix stages
-// (whole rows of pitch w_n, or WIN's 64-lag windows) and obs stages
-size_t explicit_smem(int ring, bool win, int64_t w_n) {
+// (whole rows of pitch w_n, or WIN's span windows) and obs stages
+size_t explicit_smem(int ring, bool win, int wl, int64_t w_n) {
   return 2 * (size_t)ring * sizeof(uint64_t) +
-         (size_t)ring * ((size_t)explicit_w_stage(win, w_n) + kXObsFloats) *
+         (size_t)ring * ((size_t)explicit_w_stage(win, wl, w_n) + kXObsFloats) *
              sizeof(float);
 }
 
-// The explicit form's ring: the deepest (at most kXMaxRing stages) that
-// keeps two blocks resident per SM (228 KB of shared memory, 1 KB of it
-// reserved per block), else two stages in one block's 227 KB; 0 when
-// even that does not fit.
-int explicit_ring(bool win, int64_t w_n) {
-  for (int ring = kXMaxRing; ring > 2; --ring)
-    if (2 * (explicit_smem(ring, win, w_n) + 1024) <= 228 * 1024) return ring;
-  return explicit_smem(2, win, w_n) <= 227 * 1024 ? 2 : 0;
+// The explicit form's ring: the deepest (at most three stages with two lag
+// warps, kXMaxRing with four) that keeps the layout's blocks resident per
+// SM (two with two lag warps, one with four; 228 KB of shared memory,
+// 1 KB of it reserved per block), else two stages in one block's 227 KB;
+// 0 when even that does not fit.  Two blocks per SM ran faster on three
+// stages than on four (the host shape at NL 57 on an NVIDIA H100 80GB
+// HBM3 at 700 W: tools/gpu_lagbank_probe.py, `explicit_ring4`).
+int explicit_ring(bool win, int wl, int64_t w_n) {
+  const size_t per_sm = wl <= 2 ? 2 : 1;
+  for (int ring = wl <= 2 ? 3 : kXMaxRing; ring >= 2; --ring)
+    if (per_sm * (explicit_smem(ring, win, wl, w_n) + 1024) <= 228 * 1024) return ring;
+  return explicit_smem(2, win, wl, w_n) <= 227 * 1024 ? 2 : 0;
+}
+
+// Blocks of `kernel` the current device holds at once with `smem` bytes
+// of dynamic shared memory each (its SMs x blocks per SM), cached per
+// device for the last shared-memory size asked.
+template <class Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem, int& blocks,
+                            int (&cached)[kMaxDevices][2]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cached[dev][0] == (int)smem && cached[dev][1] > 0) {
+    blocks = cached[dev][1];
+    return cudaSuccess;
+  }
+  int per_sm = 0;
+  int sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  blocks = per_sm * sms;
+  if (blocks <= 0) return cudaErrorInvalidConfiguration;
+  if (dev < kMaxDevices) {
+    cached[dev][0] = (int)smem;
+    cached[dev][1] = blocks;
+  }
+  return cudaSuccess;
+}
+
+template <int WL, bool WIN>
+cudaError_t launch_explicit_as(XArgs& x, size_t smem, cudaStream_t s) {
+  static int allowed[kMaxDevices] = {};
+  static int resident[kMaxDevices][2] = {};
+  cudaError_t err = allow_smem(lagbank_explicit_kernel<WL, WIN>, smem, allowed);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = resident_blocks(lagbank_explicit_kernel<WL, WIN>, x_threads(WL), smem, blocks,
+                        resident);
+  if (err != cudaSuccess) return err;
+  // as many reducers as the card holds at once, and no more than the
+  // output tiles need
+  constexpr int teams = x_threads(WL) / 32 / kXTeam;
+  const int64_t tiles = ((int64_t)x.G * x.P * x.NL + 7) / 8;
+  const int64_t wanted = (tiles + teams - 1) / teams;
+  x.reducers = (int)(wanted < blocks ? wanted : blocks);
+  lagbank_explicit_kernel<WL, WIN><<<x.nblocks + x.reducers, x_threads(WL), smem, s>>>(x);
+  return cudaGetLastError();
 }
 
 int launch_explicit(const Args& a, int G, cudaStream_t s) {
@@ -796,13 +1044,24 @@ int launch_explicit(const Args& a, int G, cudaStream_t s) {
   const bool inside = a.w_off >= 0 && a.w_n >= a.NL &&
                       a.w_off + (int64_t)(a.K - 1) * a.w_n + a.NL <= a.w_len;
   if (!aligned || !inside) return (int)cudaErrorInvalidValue;
-  // whole rows while they keep a ring as deep as the windows' (a narrow
-  // matrix whose lags fit one block), else the block's windows
-  const int ring_win = explicit_ring(true, a.w_n);
-  const int ring_whole = a.NL <= kLags ? explicit_ring(false, a.w_n) : 0;
+  // the lags in m16 tiles: up to 4 take one span of two lag warps (two
+  // blocks per SM); more take spans of up to 8 tiles of four lag warps,
+  // balanced (NL 403: four spans of 7, 7, 7 and 5 tiles)
+  const int tiles = (a.NL + 15) / 16;
+  const int wl = tiles <= 2 * kXTiles ? 2 : 4;
+  const int nspan = (tiles + kXTiles * wl - 1) / (kXTiles * wl);
+  const int span_tiles = (tiles + nspan - 1) / nspan;
+  // whole rows while one span holds every lag and their ring is as deep
+  // as the windows', else the spans' windows
+  const int ring_win = explicit_ring(true, wl, a.w_n);
+  const int ring_whole = nspan == 1 ? explicit_ring(false, wl, a.w_n) : 0;
   const bool win = ring_whole < ring_win;
   const int ring = win ? ring_win : ring_whole;
-  const size_t smem = explicit_smem(ring, win, a.w_n);
+  const size_t smem = explicit_smem(ring, win, wl, a.w_n);
+  const int rblocks = (2 * a.P + kRows - 1) / kRows;
+  // the producers' tickets and the reducers' (at most the card's blocks)
+  const int64_t nblocks = (int64_t)a.nchunk * nspan * G * rblocks;
+  if (nblocks > 0x7fffffff - (1 << 16)) return (int)cudaErrorInvalidValue;
   XArgs x;
   x.obs = a.obs;
   x.obs_g = a.obs_g;
@@ -818,25 +1077,22 @@ int launch_explicit(const Args& a, int G, cudaStream_t s) {
   x.kb = a.kb;
   x.nchunk = a.nchunk;
   x.ring = ring;
+  x.span_tiles = span_tiles;
+  x.nspan = nspan;
+  x.G = G;
+  x.nblocks = (int)nblocks;
+  x.reducers = 0;
+  x.scale = a.scale;
   x.part = a.part;
-  const int rblocks = (2 * a.P + kRows - 1) / kRows;
-  const int64_t lblocks = (a.NL + kLags - 1) / kLags;
-  if (rblocks > 65535 || a.nchunk * lblocks > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(a.nchunk * lblocks), G, rblocks);
+  x.ctr = a.ctr;
+  x.out = a.out;
   cudaError_t err;
-  if (win) {
-    static int allowed[kMaxDevices] = {};
-    err = allow_smem(lagbank_explicit_kernel<true>, smem, allowed);
-    if (err != cudaSuccess) return (int)err;
-    lagbank_explicit_kernel<true><<<grid, kWinThreads, smem, s>>>(x);
+  if (wl == 2) {
+    err = win ? launch_explicit_as<2, true>(x, smem, s) : launch_explicit_as<2, false>(x, smem, s);
   } else {
-    static int allowed[kMaxDevices] = {};
-    err = allow_smem(lagbank_explicit_kernel<false>, smem, allowed);
-    if (err != cudaSuccess) return (int)err;
-    lagbank_explicit_kernel<false><<<grid, kWinThreads, smem, s>>>(x);
+    err = win ? launch_explicit_as<4, true>(x, smem, s) : launch_explicit_as<4, false>(x, smem, s);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 int launch_window(const Args& a, int G, cudaStream_t s) {
@@ -897,65 +1153,78 @@ struct DeviceGuard {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  All pointers are device
-// pointers; `part` is caller-allocated scratch of G*nchunk*2*P*NL floats
-// with nchunk = ceil(K / kb).  Two layouts of W, every other refused:
-// - the window layout (w_n = 1, w_l = -1) takes the window kernel and
-//   needs 16-byte-aligned obs rows (obs pointer aligned, strides and K
-//   multiples of 4);
+// The geometry of a launch, bound with ctypes as a structure (the Python
+// wrapper keeps one per shape, so a call converts few arguments).
+struct LagbankGeometry {
+  long long obs_g, obs_c, obs_p;          // obs element strides (g, re/im, code)
+  long long w_g, w_n, w_l, w_off, w_len;  // W_g[n, l] = w[g*w_g + w_off + n*w_n + l*w_l]
+  int G, P, K, NL;
+  int kb;       // samples of K per block
+  float scale;  // of the power
+};
+
+// Plain C entry point (bound with ctypes).  `work` is the caller's device
+// workspace of `work_floats` floats: kXHeader for the explicit form's
+// counters (zero when it is allocated; each launch leaves them zero),
+// then the chunks' partial sums, G * ceil(K / kb) * 2P * NL.  Launches on
+// one stream may share it, since they run in order.  `out` is the
+// (4, G, P, NL) power, phase, re and im on the device.  Two layouts of W,
+// every other refused:
+// - the window layout (w_n = 1, w_l = -1) takes the window kernel and its
+//   second pass, and needs 16-byte-aligned obs rows (obs pointer aligned,
+//   strides and K multiples of 4);
 // - the row-major layout (w_l = 1, w_n >= NL) takes the explicit kernel,
-//   over chunks of kb samples (a multiple of 4, which
-//   ops/lagbank.explicit_chunk picks) with the ring of explicit_ring(w_n);
-//   it needs 16-byte-aligned obs (pointer aligned, strides multiples of
-//   4, each row holding K rounded up to 4 floats) and W (w + w_off
-//   aligned, w_g a multiple of 4), and every read of W within a
-//   channel's [0, w_len); any NL and pitch w_n >= NL.
+//   ONE launch, over chunks of kb samples (a multiple of 4, which
+//   ops/lagbank.explicit_chunk picks); it needs 16-byte-aligned obs
+//   (pointer aligned, strides multiples of 4, each row holding K rounded
+//   up to 4 floats) and W (w + w_off aligned, w_g a multiple of 4), and
+//   every read of W within a channel's [0, w_len); any NL and pitch
+//   w_n >= NL.
 // Launches on `stream` of CUDA device `device` (made current for the
 // launches, the caller's current device restored), does not synchronise,
 // and returns the cudaError_t of the launches (0 = success).
-extern "C" int lagbank_launch(const float* obs, long long obs_g,
-                              long long obs_c, long long obs_p,
-                              const float* w, long long w_g, long long w_n,
-                              long long w_l, long long w_off, long long w_len,
-                              int G, int P, int K, int NL, int kb,
-                              float scale, float* part, float* power,
-                              float* phase, float* re, float* im,
+extern "C" int lagbank_launch(const LagbankGeometry* geo, const float* obs,
+                              const float* w, float* work,
+                              long long work_floats, float* out,
                               int device, void* stream) {
-  if (G <= 0 || P <= 0 || K <= 0 || NL <= 0 || kb <= 0 || G > 65535) {
+  const int G = geo->G, P = geo->P, K = geo->K, NL = geo->NL, kb = geo->kb;
+  if (G <= 0 || P <= 0 || K <= 0 || NL <= 0 || kb <= 0 || G > 65535 ||
+      work_floats < kXHeader + (long long)G * ((K + kb - 1) / kb) * 2 * P * NL ||
+      reinterpret_cast<uintptr_t>(work) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const DeviceGuard on(device);
   if (on.err != cudaSuccess) return (int)on.err;
   Args a = {};
   a.obs = obs;
-  a.obs_g = obs_g;
-  a.obs_c = obs_c;
-  a.obs_p = obs_p;
+  a.obs_g = geo->obs_g;
+  a.obs_c = geo->obs_c;
+  a.obs_p = geo->obs_p;
   a.w = w;
-  a.w_g = w_g;
-  a.w_n = w_n;
-  a.w_l = w_l;
-  a.w_off = w_off;
-  a.w_len = w_len;
+  a.w_g = geo->w_g;
+  a.w_n = geo->w_n;
+  a.w_l = geo->w_l;
+  a.w_off = geo->w_off;
+  a.w_len = geo->w_len;
   a.P = P;
   a.K = K;
   a.NL = NL;
   a.kb = kb;
   a.nchunk = (K + kb - 1) / kb;
-  a.part = part;
+  a.scale = geo->scale;
+  a.ctr = reinterpret_cast<unsigned*>(work);
+  a.part = work + kXHeader;
+  a.out = out;
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = (int)cudaErrorInvalidValue;
-  if (w_n == 1 && w_l == -1) {
-    err = launch_window(a, G, s);
-  } else if (w_l == 1) {
-    err = launch_explicit(a, G, s);
-  }
+  if (a.w_l == 1) return launch_explicit(a, G, s);
+  if (a.w_n != 1 || a.w_l != -1) return (int)cudaErrorInvalidValue;
+  const int err = launch_window(a, G, s);
   if (err != 0) return err;
-
   const int64_t total = (int64_t)G * P * NL;
   const unsigned fin_blocks = (unsigned)((total + kFinOut - 1) / kFinOut);
   lagbank_finalize_kernel<<<fin_blocks, kFinOut * kFinGroups, 0, s>>>(
-      part, G, a.nchunk, P, NL, scale, power, phase, re, im);
+      a.part, G, a.nchunk, P, NL, a.scale, out, out + total, out + 2 * total,
+      out + 3 * total);
   return (int)cudaGetLastError();
 }

@@ -33,15 +33,19 @@ The window form's floor is reading obs once, but on the H100 its
 products alone take longer than its copies alone
 (``tools/gpu_lagbank_probe.py``): ``mma.sync``'s rate bounds it, and
 ``wgmma`` is the next step.  The explicit (K, NL) form streams both obs
-and the lag matrix (one bulk copy per obs row, and one per stage of whole
-matrix rows at NL <= 64 or one per row of a block's own 64-lag window
-above, so any NL fits) over a split-K grid of two resident blocks per SM
-(:func:`explicit_chunk`); its floor is reading both once (0.0251 ms
-at the host receiver's (2, 24, 200 000) x (200 000, 57)), with the
-products (0.0066 ms at the TF32 peak) under the copies.  The bulk copies
-need 16-byte-aligned rows: the wrappers pad obs with zeros to a K that is
-a multiple of 4 where it is not, and copy a lag matrix only when its data
-is not 16-byte aligned.  torch's own TF32 stays off (``check_no_tf32``).
+and the lag matrix over a split-K grid (:func:`explicit_chunk`); a block
+covers a chunk and a span of up to 128 lags in m16 tiles (obs copied and
+split once per span), its producer warps issue one bulk copy per obs row
+and per stage of whole matrix rows (one span) or per row of the span's
+window, and the chunks' partial sums are added in the same launch by its
+last blocks to start: ONE kernel per call, the partials and the launch's
+counters in the stream's workspace (no allocation but the output, no
+host state).  Its floor is reading both
+once (0.0251 ms at the host receiver's (2, 24, 200 000) x (200 000,
+57)).  The bulk copies need 16-byte-aligned rows: the wrappers pad obs
+with zeros to a K that is a multiple of 4 where it is not, and copy a lag
+matrix only when its data is not 16-byte aligned.  torch's own TF32
+stays off (``check_no_tf32``).
 """
 
 from __future__ import annotations
@@ -71,32 +75,48 @@ __all__ = [
 #: staging step); the second pass sums ceil(K / K_BLOCK) partials
 K_BLOCK = 2048
 
-#: K-chunks per SM and channel that the explicit form's split aims at:
-#: its launcher keeps two blocks resident per SM
+#: K-chunks per SM and channel that the explicit form's split aims at
+#: (its launcher keeps two blocks resident per SM up to 64 lags)
 _CHUNKS_PER_SM = 2
 #: the explicit form's shortest chunk, samples: a block's set-up and the
 #: write of its partial stay small against the samples it reads
 _MIN_CHUNK = 64
+
+#: workspace floats before the partial sums: the explicit form's ticket
+#: and arrival counters (``kXHeader`` in ``csrc/lagbank.cu``), zero
+#: between launches
+_WS_HEADER = 64
 
 _TWO_PI = 2.0 * math.pi
 
 _c_ll = ctypes.c_longlong
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
+
+
+class _Geometry(ctypes.Structure):
+    """``LagbankGeometry`` of ``csrc/lagbank.cu``: a launch's strides,
+    sizes and power scale (one per shape, kept by :func:`_geometry`)."""
+
+    _fields_ = [
+        ("obs_g", _c_ll), ("obs_c", _c_ll), ("obs_p", _c_ll),
+        ("w_g", _c_ll), ("w_n", _c_ll), ("w_l", _c_ll), ("w_off", _c_ll),
+        ("w_len", _c_ll),
+        ("G", _c_int), ("P", _c_int), ("K", _c_int), ("NL", _c_int), ("kb", _c_int),
+        ("scale", ctypes.c_float),
+    ]
+
+
 _ARGTYPES = (
-    [_c_ptr, _c_ll, _c_ll, _c_ll]  # obs, strides g/c/p
-    + [_c_ptr, _c_ll, _c_ll, _c_ll, _c_ll, _c_ll]  # w, g/n/l strides, off, len
-    + [_c_int] * 5  # G, P, K, NL, kb
-    + [ctypes.c_float]  # power scale
-    + [_c_ptr] * 5  # part, power, phase, re, im
+    [ctypes.POINTER(_Geometry)]  # geometry
+    + [_c_ptr, _c_ptr, _c_ptr, _c_ll, _c_ptr]  # obs, w, workspace, its floats, out
     + [_c_int, _c_ptr]  # device, stream
 )
 
 
 @functools.cache
 def _lib_fn():
-    lib = cuda_build.load("lagbank")
-    fn = lib.lagbank_launch
+    fn = cuda_build.load("lagbank").lagbank_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -121,11 +141,54 @@ def explicit_chunk(G: int, K: int, n_sm: int) -> int:
     that every chunk's rows start 16-byte aligned, that splits each of
     the G channels' K into enough chunks for two blocks on each of
     ``n_sm`` SMs (264 chunks of 760 at K = 200 000, G = 1 on an H100's
-    132 SMs), and at least ``_MIN_CHUNK``.  The second pass sums
-    ceil(K / chunk) partials; the kernel's launcher picks its ring and
-    shared memory."""
+    132 SMs), and at least ``_MIN_CHUNK``.  It does not depend on NL, so a
+    lag's sum keeps its K order at every lag count.  The kernel sums the
+    ceil(K / chunk) partials of each output; its launcher picks the lag
+    spans, the ring and the shared memory."""
     want = -(-_CHUNKS_PER_SM * n_sm // G)
     return max(_MIN_CHUNK, 4 * -(-K // (4 * want)))
+
+
+def workspace_floats(G: int, P: int, K: int, NL: int, kb: int) -> int:
+    """Floats of the workspace a launch needs: the explicit form's
+    counters (``_WS_HEADER``, ``kXHeader`` in the kernel source) and each
+    chunk's partial sums, G * ceil(K / kb) * 2P * NL."""
+    return _WS_HEADER + G * -(-K // kb) * 2 * P * NL
+
+
+#: launch geometries by shape: (ctypes reference, workspace floats)
+_GEOMETRIES: dict[tuple, tuple] = {}
+#: each (device, stream)'s workspace: the explicit form's counters and
+#: both forms' partial sums, grown when a launch needs more, never per
+#: call
+_WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _geometry(key: tuple) -> tuple:
+    """The cached ctypes geometry of a launch and the workspace floats it
+    needs; ``key`` = (device index, G, P, K, NL, obs_strides, w_layout,
+    power_scale, split_as)."""
+    geo = _GEOMETRIES.get(key)
+    if geo is None:
+        index, G, P, K, NL, obs_strides, w_layout, power_scale, split_as = key
+        kb = (explicit_chunk(split_as or G, K, _sm_count(index))
+              if w_layout[2] == 1 else K_BLOCK)
+        st = _Geometry(*obs_strides, *w_layout, G, P, K, NL, kb, power_scale)
+        geo = (ctypes.byref(st), workspace_floats(G, P, K, NL, kb))
+        _GEOMETRIES[key] = geo
+    return geo
+
+
+def _workspace(dev: torch.device, stream: int, floats: int) -> torch.Tensor:
+    """The workspace of ``dev``'s ``stream``, at least ``floats`` long.  A
+    new one is zeroed on that stream: the explicit form's counters start
+    at zero, and each launch leaves them zero.  Launches on one stream run
+    in order, so they share it."""
+    ws = _WORKSPACES.get((dev.index, stream))
+    if ws is None or ws.numel() < floats:
+        ws = torch.zeros(floats, dtype=torch.float32, device=dev)
+        _WORKSPACES[(dev.index, stream)] = ws
+    return ws
 
 
 def _launch(obs, w, G, P, K, NL, obs_strides, w_layout, power_scale,
@@ -134,24 +197,20 @@ def _launch(obs, w, G, P, K, NL, obs_strides, w_layout, power_scale,
     power, phase, re and im stacked, (4, G, P, NL).  The explicit form
     splits K as :func:`explicit_chunk` does for ``split_as`` channels
     (default G).  Host time per call matters here: at the host shape the
-    kernels take ~0.04 ms."""
+    kernel takes ~0.04 ms, so the geometry is cached per shape, the
+    partial sums live in the stream's workspace, and the only allocation
+    is the output."""
     if obs.device.type != "cuda" or w.device.type != "cuda":
         raise ValueError("lag_bank_kernel needs CUDA tensors")
     check_no_tf32()
     dev = obs.device
-    kb = (explicit_chunk(split_as or G, K, _sm_count(dev.index))
-          if w_layout[2] == 1 else K_BLOCK)
-    nchunk = -(-K // kb)
-    part = torch.empty(G * nchunk * 2 * P * NL, dtype=torch.float32, device=dev)
+    ref, floats = _geometry((dev.index, G, P, K, NL, obs_strides, w_layout,
+                             power_scale, split_as))
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    work = _workspace(dev, stream, floats)
     out = torch.empty((4, G, P, NL), dtype=torch.float32, device=dev)
-    base, n = out.data_ptr(), 4 * G * P * NL  # bytes of one output
-    err = _lib_fn()(
-        obs.data_ptr(), *obs_strides,
-        w.data_ptr(), *w_layout,
-        G, P, K, NL, kb, power_scale,
-        part.data_ptr(), base, base + n, base + 2 * n, base + 3 * n,
-        dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
-    )
+    err = _lib_fn()(ref, obs.data_ptr(), w.data_ptr(), work.data_ptr(), work.numel(),
+                    out.data_ptr(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"lagbank kernel launch failed (cudaError {err})")
     lag_bank_kernel.launches += 1

@@ -4,6 +4,7 @@
 Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --explicit-times TREE   # only the explicit lag-bank form's times
 
 It drives every slice of the port at production geometry and fails
 (non-zero exit, no result line) on any error.  The DLL/PLL slice,
@@ -117,8 +118,10 @@ capture):
     power and phase errors against float64 may each be at most 4x the
     float32 plain version's), checks that two launches give the same bits,
     and times it (CUDA events, the host's wall of calls that do not wait
-    for the card, and device time from ``torch.profiler``), its plain
-    version and ``torch.matmul`` of the same product, and the form at
+    for the card, and device time and CUDA kernels per call from
+    ``torch.profiler``, a device time only when the trace holds a whole
+    number of kernels per call), its plain version and ``torch.matmul`` of
+    the same product (CUDA events and device time), and the form at
     K = 257;
 21. grows a new file from the GoRanging capture in 1-s appends, one per
     second as a receiver writes (a writer thread), while ``monitor --serve PORT --timeout 3`` tails it on the
@@ -249,15 +252,20 @@ W1. ``dllpll --nlag 32`` and ``--nlag 100`` on the main capture (NL 65
     channel on its truth at second 3 and its rows against the main path's
     nlag-28 rows within step 18's tolerance (equality recorded);
     ``dllpll --host --nlag 32, 100, 201`` on the host capture, 3 s each
-    (NL 403 is past the 402 lags whose whole matrix rows fit the explicit
-    form's stages; it stages each block's 64-lag windows now): one
+    (NL 403: the explicit form stages each span's lag windows): one
     explicit-form launch per tracked channel-second, the truths at second
     2, the NL-403 run against the CPU over 3 s (the first second with
     reports).  Both forms at NL 65, 201 and 403 against their plain
     versions and float64 (within 1e-5 of the row maximum), timed beside
-    their bounds and ``torch.matmul``; the explicit form's launches
-    deterministic; ``lag_bank_correlate_channels`` at NL 403 one launch
-    with each channel's bits;
+    their bounds and ``torch.matmul``; the explicit form's two launches
+    the same bits, with step 20's numbers (device, call and host times,
+    kernels per call, ``torch.matmul`` device and call times) measured by
+    ``explicit_times`` in a fresh process (``--explicit-times``: a trace
+    in this long-lived process can come back short of its device events)
+    on seeded inputs of the same shapes;
+    ``lag_bank_correlate_channels`` at NL 403 one launch with each
+    channel's bits, timed there beside its per-channel calls, their plain
+    versions and one batched ``torch.matmul``;
 W2. ``dllpll --group 1, 7, 120``: 120, 18 and 1 window-form launches per
     tracked second, the truths, the rows against the main path's;
 W3. ``goranging --f64`` (the plain chain in complex128 on the card) and
@@ -295,8 +303,10 @@ W7. 1000 kcps (L = 500 000): a 4-s dual-channel capture through
 It prints the card's name and power limit (``nvidia-smi``), a line of
 numbers per slice (``{"ranging": ...}``, ``{"batch": ...}``,
 ``{"parity": ...}``, ``{"dllpll_modes": ...}`` and ``{"walk": ...}``
-among them), one ``{"kernels": [...]}`` line (the window form's launches
-on phase D's runs, and phase W's launches and shapes, among them), and as
+among them), one ``{"kernels": [...]}`` line (the window form's entry,
+with phase D's launches and phase W's launches and shapes among them, and
+the explicit form's entry, ``lagbank_explicit``, with step 20's numbers
+and, under ``shapes``, those of every explicit-form launch shape), and as
 its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch files go to the git-ignored ``amaranth_twstft_tpu_torch/build/``.
@@ -436,6 +446,19 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time of a call, ms: the wall of ``reps`` calls that do not
+    wait for the card (it stops measuring the host once the launch queue
+    fills, which takes far more calls than this)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * wall / reps
 
 
 class Truth(NamedTuple):
@@ -1695,17 +1718,13 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
     library_ms = cuda_ms(lambda: torch.matmul(obs2, w), 10)
     ms2 = cuda_ms(lambda: lagbank.lag_bank_correlate(obs, w), 20)
     # host time alone: the wall of 20 calls that do not wait for the card
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        lagbank.lag_bank_correlate(obs, w)
-    host_ms = 1e3 * (time.perf_counter() - t0) / 20
-    torch.cuda.synchronize()
-    # device time alone: a call's host time (checks, two allocations, the
-    # ctypes call) can exceed the kernels' ~0.04 ms on the card's host
-    device_ms, device_ops, _ = profile_device(lambda: lagbank.lag_bank_correlate(obs, w), 10)
-    plain_device_ms, _, _ = profile_device(lambda: lagbank.lag_bank_plain(obs, w), 10)
-    library_device_ms, _, _ = profile_device(lambda: torch.matmul(obs2, w), 10)
+    h_ms = host_ms(lambda: lagbank.lag_bank_correlate(obs, w))
+    # device time alone: a call's host time (checks, the output's
+    # allocation, the ctypes call) can exceed the kernel's ~0.04 ms on the
+    # card's host
+    device_ms, device_ops = per_call_device(lambda: lagbank.lag_bank_correlate(obs, w))
+    plain_device_ms, _ = per_call_device(lambda: lagbank.lag_bank_plain(obs, w))
+    library_device_ms, _ = per_call_device(lambda: torch.matmul(obs2, w))
     o257, w257 = obs[..., :257].contiguous(), w[:257].contiguous()
     ms_k257 = cuda_ms(lambda: lagbank.lag_bank_correlate(o257, w257), 50)
     flops = 2.0 * 2 * C * nl * K
@@ -1716,8 +1735,8 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
     kernel_ms = min(ms, ms2)
     log(f"explicit form per launch: kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} "
         f"ms, torch.matmul {library_ms:.4f} ms (CUDA events); host time of a call "
-        f"{host_ms:.4f} ms; device time (profiler): "
-        f"kernel {device_ms} ms in {device_ops} kernels, plain {plain_device_ms} ms, "
+        f"{h_ms:.4f} ms; device time (profiler): "
+        f"kernel {device_ms} ms in {device_ops} kernels per call, plain {plain_device_ms} ms, "
         f"torch.matmul {library_device_ms} ms; at K = 257: {ms_k257:.4f} "
         f"ms; bounds: bytes {bound_bytes_ms:.4f} ms ({nbytes:.3e} B), 3xTF32 "
         f"{bound_tf32x3_ms:.4f} ms, fp32 FMA {bound_fp32_ms:.4f} ms ({flops:.3e} FLOP); "
@@ -1760,7 +1779,8 @@ def host_phase(work: str, dev, seed: int, taps: list[int]) -> dict:
             "plain_ms_explicit": plain_ms,
             "library_ms_explicit": library_ms,
             "device_ms_explicit": device_ms,
-            "host_ms_explicit": host_ms,
+            "host_ms_explicit": h_ms,
+            "kernels_per_call_explicit": device_ops,
             "plain_device_ms_explicit": plain_device_ms,
             "library_device_ms_explicit": library_device_ms,
             "ms_explicit_k257": ms_k257,
@@ -3467,12 +3487,12 @@ def walk_window_shape(lb: dict) -> dict:
             "plain_f64_phase_err_cycles": p64[1]}
 
 
-def walk_explicit_shape(obs: torch.Tensor, w: torch.Tensor) -> dict:
+def walk_explicit_shape(obs: torch.Tensor, w: torch.Tensor, times: dict) -> dict:
     """The explicit form at one of W1's host launch shapes, (2, C, K) x (K,
     NL): against its plain version and float64 (within W_F64_TOL of the
-    row maximum), two launches the same bits, timed (CUDA events and the
-    profiler's device time) beside its plain version, ``torch.matmul`` and
-    its bounds."""
+    row maximum), two launches the same bits, with its times from
+    :func:`explicit_times` (``times``, measured in a fresh process on
+    inputs of the same shape) beside its bounds."""
     from amaranth_twstft_tpu_torch.ops import lagbank
 
     _, C, K = obs.shape
@@ -3489,31 +3509,165 @@ def walk_explicit_shape(obs: torch.Tensor, w: torch.Tensor) -> dict:
     del ref64, kern, again, plain
     if k64[0] > W_F64_TOL or k64[1] > W_F64_TOL:
         raise RuntimeError(f"{what}: float64 errors {k64}")
-    ms = cuda_ms(lambda: lagbank.lag_bank_correlate(obs, w), 20)
-    device_ms, device_ops, _ = profile_device(lambda: lagbank.lag_bank_correlate(obs, w), 10)
-    plain_ms = cuda_ms(lambda: lagbank.lag_bank_plain(obs, w), 10)
-    obs2 = obs.reshape(2 * C, K)
-    library_ms = cuda_ms(lambda: torch.matmul(obs2, w), 10)
+    ms = times["ms"][0]
     b = lag_bounds(4.0 * (obs.numel() + w.numel() + 2 * C * nl), 2.0 * 2 * C * nl * K)
-    log(f"  {what}: kernel {ms:.4f} ms (CUDA events), device {device_ms} ms in "
-        f"{device_ops} kernels (profiler), plain {plain_ms:.4f} ms, torch.matmul "
-        f"{library_ms:.4f} ms; bytes floor {b['bound_bytes_ms']:.4f} ms "
-        f"({b['bytes']:.3e} B), 3xTF32 {b['bound_tf32x3_ms']:.4f} ms -> "
-        f"{100 * b['bound_ms'] / ms:.1f}% of the bound; two launches the same bits; "
-        f"float64 err {k64[0]:.3e} of the row max, phase {k64[1]:.3e} cycles (fp32 plain "
-        f"{p64[0]:.3e}, {p64[1]:.3e})")
-    return {"form": "explicit", "shape": [2, C, K, nl], "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, **b, "max_abs_err": abs_err,
-            "max_err_over_row_max": rel_err, "max_phase_err_cycles": ph_err,
-            "f64_err": k64[0], "f64_phase_err_cycles": k64[1], "plain_f64_err": p64[0],
-            "plain_f64_phase_err_cycles": p64[1], "deterministic": True}
+    log(f"  {what}: two launches the same bits; float64 err {k64[0]:.3e} of the row max, "
+        f"phase {k64[1]:.3e} cycles (fp32 plain {p64[0]:.3e}, {p64[1]:.3e}); bytes floor "
+        f"{b['bound_bytes_ms']:.4f} ms ({b['bytes']:.3e} B), 3xTF32 "
+        f"{b['bound_tf32x3_ms']:.4f} ms -> {100 * b['bound_ms'] / ms:.1f}% of the bound")
+    return {"form": "explicit", "shape": [2, C, K, nl], "ms": ms,
+            **{k: times[k] for k in EXPLICIT_TIME_KEYS}, **b,
+            "max_abs_err": abs_err, "max_err_over_row_max": rel_err,
+            "max_phase_err_cycles": ph_err, "f64_err": k64[0], "f64_phase_err_cycles": k64[1],
+            "plain_f64_err": p64[0], "plain_f64_phase_err_cycles": p64[1],
+            "deterministic": True}
 
 
-def walk_channels_shape(obs: torch.Tensor, w: torch.Tensor) -> dict:
+#: the explicit form's times that :func:`explicit_times` gives each shape
+EXPLICIT_TIME_KEYS = ("device_ms", "host_ms", "kernels_per_call", "plain_ms", "library_ms",
+                      "library_device_ms")
+#: the explicit form's lag counts: the host receiver's --nlag 28, 32, 100, 201
+EXPLICIT_NLS = (57, 65, 201, 403)
+EXPLICIT_SEED = 14  # of explicit_times' inputs
+
+
+def per_call_device(fn, reps: int = 10) -> tuple:
+    """Device time per call (ms) and CUDA kernels per call of ``fn`` from
+    ``torch.profiler``; the time is None unless the trace holds a whole
+    number of kernels per call (a trace short of events would give a
+    short time)."""
+    dev_ms, ops, _ = profile_device(fn, reps)
+    if ops is None or abs(ops - round(ops)) > 1e-9 or round(ops) < 1:
+        return None, ops
+    return dev_ms, ops
+
+
+def explicit_times(tree: str, seed: int) -> dict:
+    """The explicit (K, NL) form of the ``amaranth_twstft_tpu_torch`` in
+    ``tree`` (this checkout, or a ``git archive`` of another commit) at
+    the host receiver's shape (2, 24, 200 000) x (200 000, NL) for each of
+    EXPLICIT_NLS, on seeded inputs: the call time by CUDA events (20 calls
+    back to back, twice, first and last), the host time of a call, the
+    device time and CUDA kernels per call (:func:`per_call_device`), the
+    plain version's and ``torch.matmul``'s times, the float64 errors of
+    the kernel and of the float32 plain version, and whether two launches
+    give the same bits; then ``lag_bank_correlate_channels`` over two
+    channels at NL 403 beside its per-channel calls, their plain versions
+    and one batched ``torch.matmul``.  Run in a process of its own
+    (``--explicit-times TREE``): a trace in a long-lived process can come
+    back short of its device events."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    C, K = 24, 200_000
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    obs = torch.randn(2, C, K, generator=gen, device=dev)
+    obs2 = obs.reshape(2 * C, K)
+    out: dict = {"tree": tree}
+    for nl in EXPLICIT_NLS:
+        w = torch.randn(K, nl, generator=gen, device=dev)
+
+        def call(w=w):
+            return lagbank.lag_bank_correlate(obs, w)
+
+        kern, again = call(), call()
+        same = all(torch.equal(a, b) for a, b in zip(kern, again))
+        plain = lagbank.lag_bank_plain(obs, w)
+        ref64 = lagbank.lag_bank_plain(obs.double(), w.double())
+        k64, p64 = lagbank.lag_bank_errors(kern, ref64), lagbank.lag_bank_errors(plain, ref64)
+        del ref64, kern, again, plain
+        ms = cuda_ms(call, 20)
+        device_ms, ops = per_call_device(call)
+        lib_device_ms, lib_ops = per_call_device(lambda w=w: torch.matmul(obs2, w))
+        r = {"ms": [ms], "host_ms": host_ms(call), "device_ms": device_ms,
+             "kernels_per_call": ops,
+             "library_ms": cuda_ms(lambda w=w: torch.matmul(obs2, w), 20),
+             "library_device_ms": lib_device_ms, "library_kernels_per_call": lib_ops,
+             "plain_ms": cuda_ms(lambda w=w: lagbank.lag_bank_plain(obs, w), 10),
+             "f64_err": k64, "plain_f64_err": p64, "deterministic": same}
+        r["ms"].append(cuda_ms(call, 20))
+        out[str(nl)] = r
+        log(f"  NL {nl}: call {r['ms'][0]:.4f} / {r['ms'][1]:.4f} ms (CUDA events), host "
+            f"{r['host_ms']:.4f} ms, device {device_ms} ms in {ops} kernels per call; "
+            f"torch.matmul {r['library_ms']:.4f} ms (device {lib_device_ms} in {lib_ops}); "
+            f"plain {r['plain_ms']:.4f} ms; float64 err {k64[0]:.3e} (plain {p64[0]:.3e}); "
+            f"two launches the same bits: {same}")
+        del w
+    nl = EXPLICIT_NLS[-1]
+    w = torch.randn(K, nl, generator=gen, device=dev)
+    obs_c = torch.stack([obs, obs.flip(-1)])
+    w_c = torch.stack([w, w.roll(1, 0)])
+    obs_c2 = obs_c.reshape(2, 2 * C, K)
+    ch_device_ms, ch_ops = per_call_device(lambda: lagbank.lag_bank_correlate_channels(obs_c, w_c))
+    ch = {"ms": cuda_ms(lambda: lagbank.lag_bank_correlate_channels(obs_c, w_c), 10),
+          "device_ms": ch_device_ms, "kernels_per_call": ch_ops,
+          "per_channel_ms": cuda_ms(lambda: [lagbank.lag_bank_correlate(obs_c[i], w_c[i])
+                                             for i in range(2)], 10),
+          "plain_ms": cuda_ms(lambda: [lagbank.lag_bank_plain(obs_c[i], w_c[i])
+                                       for i in range(2)], 5),
+          "library_ms": cuda_ms(lambda: torch.matmul(obs_c2, w_c), 10)}
+    out[f"channels_{nl}"] = ch
+    log(f"  lag_bank_correlate_channels, 2 x NL {nl}: {ch['ms']:.4f} ms (device "
+        f"{ch_device_ms} in {ch_ops} kernels per call); 2 single-channel calls "
+        f"{ch['per_channel_ms']:.4f} ms, plain {ch['plain_ms']:.4f} ms, one batched "
+        f"torch.matmul {ch['library_ms']:.4f} ms")
+    return out
+
+
+def fresh_explicit_times(tree: str, seed: int) -> dict:
+    """:func:`explicit_times` of ``tree`` in a new process (its lines go to
+    this log); fails if that process fails."""
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--explicit-times", tree,
+                          "--seed", str(seed)], capture_output=True, text=True, timeout=600)
+    for line in run.stdout.splitlines()[:-1]:
+        log(line)
+    if run.returncode != 0:
+        raise RuntimeError(f"explicit_times({tree}) failed: {run.stderr[-2000:]}")
+    return json.loads(run.stdout.splitlines()[-1])
+
+
+def explicit_entry(k: dict, walk_shapes: list) -> dict:
+    """The explicit (K, NL) form's entry of the kernels line: step 20's
+    numbers at the host receiver's NL 57 (its main path) and, under
+    ``shapes``, those of NL 57 and W1's launch shapes (NL 65, 201, 403,
+    and ``lag_bank_correlate_channels`` at 403)."""
+    nl57 = {"form": "explicit", "shape": [2, 24, 200_000, 57], "ms": k["ms_explicit"],
+            "device_ms": k["device_ms_explicit"], "host_ms": k["host_ms_explicit"],
+            "kernels_per_call": k["kernels_per_call_explicit"],
+            "plain_ms": k["plain_ms_explicit"], "library_ms": k["library_ms_explicit"],
+            "library_device_ms": k["library_device_ms_explicit"],
+            "bound_ms": k["bound_explicit_ms"], "bound_by": k["bound_explicit_by"],
+            "f64_err": k["explicit_f64_err"], "plain_f64_err": k["explicit_plain_f64_err"],
+            "launches": k["launches_explicit"]}
+    return {
+        "name": "lagbank_explicit",
+        "route": "cuda",
+        "source": "amaranth_twstft_tpu_torch/csrc/lagbank.cu",
+        "replaces": "amaranth_twstft_tpu/ops/lagbank.py:96",
+        "launches": k["launches_explicit"],
+        "max_abs_err": k["explicit_max_abs_err"],
+        "ms": k["ms_explicit"],
+        "plain_ms": k["plain_ms_explicit"],
+        "bound_ms": k["bound_explicit_ms"],
+        "bound_by": k["bound_explicit_by"],
+        "library_ms": k["library_ms_explicit"],
+        "device_ms": k["device_ms_explicit"],
+        "host_ms": k["host_ms_explicit"],
+        "library_device_ms": k["library_device_ms_explicit"],
+        "kernels_per_call": k["kernels_per_call_explicit"],
+        "f64_err": k["explicit_f64_err"],
+        "plain_f64_err": k["explicit_plain_f64_err"],
+        "shapes": [nl57, *(s for s in walk_shapes if s["form"].startswith("explicit"))],
+    }
+
+
+def walk_channels_shape(obs: torch.Tensor, w: torch.Tensor, times: dict) -> dict:
     """``lag_bank_correlate_channels`` (the sharded lag-bank step's launch)
     over two channels at the host's NL-403 shape: one launch of the
     explicit form, each channel's bits those of its own
-    ``lag_bank_correlate``, timed."""
+    ``lag_bank_correlate``, with its times from :func:`explicit_times`
+    (``times``)."""
     from amaranth_twstft_tpu_torch.ops import lagbank
 
     obs_c = torch.stack([obs, obs.flip(-1)])
@@ -3526,16 +3680,15 @@ def walk_channels_shape(obs: torch.Tensor, w: torch.Tensor) -> dict:
         own = lagbank.lag_bank_correlate(obs_c[i], w_c[i])
         if not (torch.equal(power[i], own[0]) and torch.equal(phase[i], own[1])):
             raise RuntimeError(f"lag_bank_correlate_channels: channel {i} differs")
-    ms = cuda_ms(lambda: lagbank.lag_bank_correlate_channels(obs_c, w_c), 10)
     _, C, P, K = obs_c.shape
     nl = w.shape[1]
     b = lag_bounds(4.0 * (obs_c.numel() + w_c.numel() + 2 * C * P * nl),
                    2.0 * 2 * C * P * nl * K)
     log(f"  W1 lag_bank_correlate_channels over {C} channels of (2, {P}, {K}) x ({K}, {nl}): "
-        f"one launch, each channel's bits its own launch's; {ms:.4f} ms (bytes floor "
-        f"{b['bound_bytes_ms']:.4f} ms)")
+        f"one launch, each channel's bits its own launch's; bytes floor "
+        f"{b['bound_bytes_ms']:.4f} ms")
     del obs_c, w_c, power, phase
-    return {"form": "explicit_channels", "shape": [C, 2, P, K, nl], "ms": ms, **b}
+    return {"form": "explicit_channels", "shape": [C, 2, P, K, nl], **times, **b}
 
 
 def w1_w2_bank(work: str, cap: str, truths: dict, dev, main_rows: dict) -> dict:
@@ -3646,11 +3799,17 @@ def w1_host(work: str, cap: str, truths: dict, dev) -> dict:
         out["nlag"][str(nlag)] = entry
         out["launches"][f"w_host{nlag}"] = launches
         inputs[2 * nlag + 1] = kept
-    out["kernel"] = [dict(walk_explicit_shape(inputs[nl]["obs"], inputs[nl]["w"]),
+    # the times in a fresh process (a trace in this one can come back
+    # short of its device events), on inputs of the same shapes
+    log("W1 explicit-form times, in a process of its own:")
+    times = fresh_explicit_times(os.path.dirname(os.path.abspath(__file__)), EXPLICIT_SEED)
+    out["kernel"] = [dict(walk_explicit_shape(inputs[nl]["obs"], inputs[nl]["w"],
+                                              times[str(nl)]),
                           launches=out["launches"][f"w_host{(nl - 1) // 2}"])
                      for nl in sorted(inputs)]
     big = inputs[max(inputs)]
-    out["kernel"].append(walk_channels_shape(big["obs"], big["w"]))
+    out["kernel"].append(walk_channels_shape(big["obs"], big["w"],
+                                             times[f"channels_{max(inputs)}"]))
     out["stages_at_nl57"] = explicit_stages_at_57(inputs[min(inputs)])
     return out
 
@@ -3660,7 +3819,7 @@ def explicit_stages_at_57(x: dict) -> dict:
     on the same lags (the NL-65 inputs' middle 57): whole matrix rows (a
     pitch of 57, the receiver's launch) and the blocks' 64-lag windows (a
     pitch of 100 takes them); each against the plain version, device time
-    by the profiler."""
+    by the profiler (None when the trace is short of kernels)."""
     from amaranth_twstft_tpu_torch.ops import lagbank
 
     obs = x["obs"].clone()  # lag_bank_kernel takes 16-byte-aligned rows only
@@ -3680,9 +3839,9 @@ def explicit_stages_at_57(x: dict) -> dict:
         got = fn()
         compare_lag_banks(f"W1 explicit form at NL 57, pitch {pitch} ({name})",
                           (got[0][0], got[1][0]), plain)
-        out[f"{name}_device_ms"] = profile_device(fn, 20)[0]
+        out[f"{name}_device_ms"] = per_call_device(fn, 20)[0]
     log(f"  W1 explicit form at NL 57: whole-row stages {out['whole_rows_device_ms']} ms, "
-        f"64-lag window stages {out['windows_device_ms']} ms of device time (profiler)")
+        f"window stages {out['windows_device_ms']} ms of device time (profiler)")
     return out
 
 
@@ -4168,12 +4327,19 @@ def w7_geometries(work: str, dev, seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2026)
+    ap.add_argument("--explicit-times", metavar="TREE",
+                    help="only print explicit_times() of the checkout TREE as one JSON line "
+                         "(W1 runs it in a fresh process; run it on two trees to compare "
+                         "them)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if args.explicit_times:
+        print(json.dumps(explicit_times(args.explicit_times, args.seed)), flush=True)
+        return 0
     os.environ.setdefault("TWSTFT_BANK_CACHE", "")  # no ~300 MB cache entry
 
     from amaranth_twstft_tpu_torch import native
@@ -4476,7 +4642,7 @@ def main() -> int:
         "f64_err_slow_geometry": slow["f64_err"],
         "launches_walk": {**walk["bank"]["launches"], **walk["host"]["launches"]},
         "walk_shapes": walk["bank"]["kernel"] + walk["host"]["kernel"],
-    }]}))
+    }, explicit_entry(host["kernel"], walk["host"]["kernel"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ machine that has only PyTorch, without the JAX test harness:
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -542,20 +543,31 @@ def _explicit_plain(obs, w):
 
 
 @pytest.mark.parametrize("g,p,k,nl", [
-    (1, 24, 200_000, 57),  # the host receiver's shape
+    (1, 24, 200_000, 57),  # the host receiver's shape: one span, whole rows
     (1, 5, 257, 57),       # K % 4 != 0: obs padded, the matrix's tail masked
-    (1, 7, 4099, 81),      # 81 lags: two lag blocks
+    (1, 7, 4099, 81),      # 81 lags: six m16 tiles in one span
     (1, 49, 2000, 17),     # 98 rows: three row blocks
     (3, 24, 2000, 57),     # G = 3 through lag_bank_kernel
-    (1, 24, 200_000, 65),  # dllpll --host --nlag 32: the 64-lag windows
-    (1, 24, 200_000, 201),  # --nlag 100
-    (1, 24, 200_000, 403),  # --nlag 201: whole rows would not fit a block
+    (3, 24, 2000, 201),    # G = 3 over two spans
+    (1, 49, 2000, 129),    # three row blocks over two spans
+    (1, 24, 200_000, 65),  # dllpll --host --nlag 32: four lag warps, one span
+    (1, 24, 200_000, 201),  # --nlag 100: two spans
+    (1, 24, 200_000, 403),  # --nlag 201: four spans, windows of each row
+    # the span edges: 4 m16 tiles in one span of two lag warps, up to 8
+    # in a span of four, balanced spans above
+    (1, 24, 20_000, 64),
+    (1, 24, 20_000, 80),
+    (1, 24, 20_000, 128),
+    (1, 24, 20_000, 129),
+    (1, 24, 20_000, 256),
+    (1, 24, 20_000, 257),
+    (1, 24, 20_000, 601),
 ])
 def test_explicit_kernel_float64_accuracy(cuda, g, p, k, nl):
     """The explicit (K, NL) form's compensated 3xTF32 products: within the
     kernel-vs-plain bounds of its plain version, within 1e-5 of the row
-    maximum of float64, and at the host shape within 4x of the float32
-    plain version's own float64 error."""
+    maximum of float64, and at the host shape (K = 200 000) within 4x of
+    the float32 plain version's own float64 error."""
     obs, w = _explicit_case(cuda, g, p, k, nl, seed=5)
     if g == 1:
         before = tlb.lag_bank_correlate.launches
@@ -574,14 +586,16 @@ def test_explicit_kernel_float64_accuracy(cuda, g, p, k, nl):
     k64 = tlb.lag_bank_errors(kern, ref64)
     p64 = tlb.lag_bank_errors(plain, ref64)
     assert k64[0] < F64_TOL and k64[1] < F64_TOL, (k64, p64)
-    if (g, p, k, nl) == (1, 24, 200_000, 57):
+    if (g, p, k) == (1, 24, 200_000):
         assert k64[0] <= F64_GATE * p64[0] and k64[1] <= F64_GATE * p64[1], (k64, p64)
 
 
 def test_explicit_kernel_is_deterministic(cuda):
-    """No atomics: two launches of the explicit form give the same bits,
-    in both of its stage layouts (whole rows at NL 57, windows at 403)."""
-    for g, p, k, nl in [(1, 24, 200_000, 57), (1, 5, 257, 57), (1, 24, 200_000, 403)]:
+    """No atomics in the sums: two launches of the explicit form give the
+    same bits, in both of its stage layouts (whole rows at NL 57 and 129,
+    windows at 403 and 601), whichever blocks sum the partials."""
+    for g, p, k, nl in [(1, 24, 200_000, 57), (1, 5, 257, 57), (1, 24, 200_000, 403),
+                        (1, 24, 20_000, 129), (1, 24, 20_000, 601)]:
         obs, w = _explicit_case(cuda, g, p, k, nl, seed=3)
         first = tlb.lag_bank_correlate(obs[0], w[0])
         second = tlb.lag_bank_correlate(obs[0], w[0])
@@ -592,9 +606,10 @@ def test_explicit_kernel_is_deterministic(cuda):
 def test_explicit_kernel_edges(cuda):
     """An exact-zero code gives exactly zero power and NaN-free results;
     obs and lag-matrix views whose data are not 16-byte aligned are copied
-    and agree with the plain version; row pitches of 400 and 1000 (whose
-    whole rows would not fit a block's shared memory: the kernel stages
-    each row's lag window) agree with it too; a layout that is neither the
+    and agree with the plain version; row pitches of 400 and 1000 at NL 57
+    (whose whole rows would not fit the ring: the kernel stages each row's
+    lag window), 300 at NL 201 and 1000 at 403 agree with it too; a layout
+    that is neither the
     window form's nor row-major with a pitch of at least NL makes the C
     entry point refuse the launch."""
     obs, w = _explicit_case(cuda, 1, 5, 1000, 57, seed=13)
@@ -612,12 +627,12 @@ def test_explicit_kernel_edges(cuda):
     assert obs_view.data_ptr() % 16 != 0 and w_view.data_ptr() % 16 != 0
     _close(tlb.lag_bank_correlate(obs_view, w_view), tlb.lag_bank_plain(obs_view, w_view))
     k, nl = w.shape
-    for pitch in (400, 1000):
+    for pitch, lags in ((400, nl), (1000, nl), (300, 201), (1000, 403)):
         w_wide = torch.randn(k, pitch, generator=gen).to(cuda)
-        wide = tlb.lag_bank_kernel(obs[None], w_wide, G=1, P=5, K=k, NL=nl,
+        wide = tlb.lag_bank_kernel(obs[None], w_wide, G=1, P=5, K=k, NL=lags,
                                    obs_strides=(0, 5 * k, k),
                                    w_layout=(0, pitch, 1, 0, k * pitch), power_scale=0.5)
-        plain = tlb.lag_bank_plain(obs, w_wide[:, :nl].contiguous())
+        plain = tlb.lag_bank_plain(obs, w_wide[:, :lags].contiguous())
         _close((wide[0][0][keep], wide[1][0][keep]), (plain[0][keep], plain[1][keep]))
     before = tlb.lag_bank_kernel.launches
     for w_arg, layout in [(w.T.contiguous(), (0, 1, k, 0, k * nl)),  # column-major
@@ -645,6 +660,172 @@ def test_correlate_channels_at_403_lags(cuda):
     ref64 = _explicit_plain(obs.double(), w.double())
     k64 = tlb.lag_bank_errors((power, phase), ref64)
     assert k64[0] < F64_TOL and k64[1] < F64_TOL, k64
+
+
+def test_explicit_lags_keep_their_bits_at_every_nl(cuda):
+    """The K split, the stage chains, the K halves and the chunk groups do
+    not depend on NL, so a lag's power and phase are the same bits
+    whichever lag count, span and stage layout the call takes (NL 57:
+    one span of whole rows; 65 and 129: four lag warps; 201 and 403:
+    spans of windows)."""
+    obs, w = _explicit_case(cuda, 1, 24, 20_000, 403, seed=51)
+    base = tlb.lag_bank_correlate(obs[0], w[0][:, :57].contiguous())
+    for nl in (65, 129, 201, 403):
+        got = tlb.lag_bank_correlate(obs[0], w[0][:, :nl].contiguous())
+        for a, b in zip(base, got):
+            assert torch.equal(a, b[:, :57]), nl
+
+
+def test_explicit_kernel_is_one_launch(cuda):
+    """A call of the explicit form is one CUDA kernel (the chunks' partial
+    sums are added in the same launch) and no allocation but its output,
+    counted by torch.profiler over 5 calls at NL 57 and 403.  A trace can
+    come back short of device events (seen on the H100 in a process that
+    had traced before) but never holds events that did not run: every
+    trace must hold only this kernel, at most once per call, and one of
+    three traces all 5 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for nl in (57, 403):
+        obs, w = _explicit_case(cuda, 1, 24, 200_000, nl, seed=31)
+        tlb.lag_bank_correlate(obs[0], w[0])
+        torch.cuda.synchronize()
+        counts = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    tlb.lag_bank_correlate(obs[0], w[0])
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            assert len(kernels) <= 5 and all("lagbank_explicit_kernel" in k for k in kernels), \
+                kernels
+            counts.append(len(kernels))
+            if counts[-1] == 5:
+                break
+        assert counts[-1] == 5, counts
+
+
+def test_explicit_workspace_grows_and_stays_right(cuda):
+    """The stream's workspace grows for a larger call and is reused, not
+    reallocated, by a smaller one after it; every call stays equal to its
+    plain version, a call repeated after the larger one gives its first
+    bits, and every launch leaves the counters zero."""
+    small, big = _explicit_case(cuda, 1, 24, 2000, 65, seed=41), \
+        _explicit_case(cuda, 1, 24, 200_000, 403, seed=42)
+    first = tlb.lag_bank_correlate(small[0][0], small[1][0])
+    _close(first, tlb.lag_bank_plain(small[0][0], small[1][0]))
+    _close(tlb.lag_bank_correlate(big[0][0], big[1][0]),
+           tlb.lag_bank_plain(big[0][0], big[1][0]))
+    key = (cuda.index or 0, torch.cuda.current_stream().cuda_stream)
+    grown = tlb._WORKSPACES[key]
+    again = tlb.lag_bank_correlate(small[0][0], small[1][0])
+    assert tlb._WORKSPACES[key] is grown
+    assert bool((grown[:3] == 0).all())
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    # another stream has a workspace of its own
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = tlb.lag_bank_correlate(small[0][0], small[1][0])
+    torch.cuda.current_stream().wait_stream(side)
+    assert tlb._WORKSPACES[(key[0], side.cuda_stream)] is not grown
+    for a, b in zip(first, other):
+        assert torch.equal(a, b)
+
+
+def _wait_for(streams, seconds: float) -> None:
+    """Wait until the work queued so far on ``streams`` is done, failing
+    after ``seconds`` (a launch that waited for blocks the card never ran
+    would hang here)."""
+    events = [s.record_event() for s in streams]
+    t0 = time.monotonic()
+    while not all(e.query() for e in events):
+        assert time.monotonic() - t0 < seconds, "the lag-bank launches did not finish"
+        time.sleep(0.01)
+
+
+def test_explicit_kernel_beside_other_streams(cuda):
+    """The explicit form's reducers wait only for blocks that started
+    before them, so calls stay right while other streams' kernels hold
+    the SMs: a large fp32 product and the explicit form itself (NL 403,
+    whose 1056 producers take eight waves) on two side streams, with
+    calls at NL 57 and 403 on the current stream in between.  Every result
+    equals the same call made alone, and the counters end at zero."""
+    cases = {nl: _explicit_case(cuda, 1, 24, 200_000, nl, seed=61 + nl) for nl in (57, 403)}
+    alone = {nl: tlb.lag_bank_correlate(o[0], w[0]) for nl, (o, w) in cases.items()}
+    hog = torch.randn(6144, 6144, device=cuda)
+    main = torch.cuda.current_stream()
+    sides = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for side in sides:
+        side.wait_stream(main)
+    got = []
+    for rep in range(4):
+        with torch.cuda.stream(sides[0]):
+            hog = torch.matmul(hog, hog).mul_(1e-4)
+        with torch.cuda.stream(sides[1]):
+            side_out = tlb.lag_bank_correlate(cases[403][0][0], cases[403][1][0])
+        for nl in (57, 403):
+            got.append((nl, tlb.lag_bank_correlate(cases[nl][0][0], cases[nl][1][0])))
+        got.append((403, side_out))
+    _wait_for([main, *sides], 60.0)
+    for nl, out in got:
+        for a, b in zip(alone[nl], out):
+            assert torch.equal(a, b), nl
+    for stream in (main, sides[1]):
+        ws = tlb._WORKSPACES[(cuda.index or 0, stream.cuda_stream)]
+        assert bool((ws[:3] == 0).all())
+
+
+def test_explicit_kernel_in_a_cuda_graph(cuda):
+    """Nothing of a launch is kept on the host: two calls captured in one
+    CUDA graph (NL 57 and 403) give their eager bits at every replay."""
+    cases = [_explicit_case(cuda, 1, 24, 200_000, nl, seed=71 + nl) for nl in (57, 403)]
+    eager = [tlb.lag_bank_correlate(o[0], w[0]) for o, w in cases]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the capture stream's workspace, grown outside the capture
+        for o, w in cases:
+            tlb.lag_bank_correlate(o[0], w[0])
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        outs = [tlb.lag_bank_correlate(o[0], w[0]) for o, w in cases]
+    for _ in range(3):
+        for out in outs:
+            for t in out:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for want, out in zip(eager, outs):
+            for a, b in zip(want, out):
+                assert torch.equal(a, b)
+
+
+def test_explicit_kernel_from_threads(cuda):
+    """Four threads calling the explicit form on one stream (the ctypes
+    call releases the GIL) each get the bits of the same call made alone."""
+    import threading
+
+    cases = [_explicit_case(cuda, 1, 24, 20_000, nl, seed=81 + nl) for nl in (57, 65, 201, 403)]
+    alone = [tlb.lag_bank_correlate(o[0], w[0]) for o, w in cases]
+    got: dict = {}
+
+    def run(i):
+        o, w = cases[i]
+        got[i] = [tlb.lag_bank_correlate(o[0], w[0]) for _ in range(20)]
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(cases))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    _wait_for([torch.cuda.current_stream()], 60.0)
+    for i, want in enumerate(alone):
+        for out in got[i]:
+            for a, b in zip(want, out):
+                assert torch.equal(a, b), i
 
 
 def test_hunt_above_quantile_limit_on_card_matches_cpu(cuda):

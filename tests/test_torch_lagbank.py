@@ -25,7 +25,12 @@ def _phase_diff(a, b):
     return np.abs(np.mod(np.asarray(a) - np.asarray(b) + 0.5, 1.0) - 0.5)
 
 
-@pytest.mark.parametrize("c,k,nl", [(6, 3000, 11), (24, 2000, 17), (5, 257, 57)])
+@pytest.mark.parametrize("c,k,nl", [
+    (6, 3000, 11), (24, 2000, 17), (5, 257, 57),
+    # past 64 lags (dllpll --host --nlag 32, 64, 100): Pallas pads NL to
+    # 128 and 256
+    (6, 1000, 65), (4, 1200, 129), (3, 800, 201),
+])
 def test_plain_matches_jax_dots_and_pallas(c, k, nl):
     rng = np.random.default_rng(c * 1000 + nl)
     obs = rng.normal(size=(2, c, k)).astype(np.float32)
@@ -176,8 +181,105 @@ def test_tf32x3_split_holds_fp32_tolerances(g, p, k, nlag):
     assert one_pass_err > 2 * POWER_RTOL or _phase_diff(ph1.numpy(), ref_ph).max() > PHASE_ATOL
 
 
+def _explicit_tf32_model(obs, W, kb, passes):
+    """The explicit form's arithmetic in plain torch, in its term order:
+    both operands split into tf32 parts; per chunk of ``kb`` samples and
+    per 64-sample stage, each 32-sample K half's products (``small*big +
+    big*small + big*big`` with ``passes=3``, ``big*big`` alone with
+    ``passes=1``) are summed in float32 as one chain and added to that
+    half's float32 sum, the halves added in order; the chunks' partials
+    then go to the kernel's interleaved groups (``kXGroups`` in the C
+    source), each summed in chunk order, and the groups are added in
+    order.  Returns power (scale 0.5) and phase as
+    ``lag_bank_correlate`` does."""
+    ob, osm = _split_tf32(obs)
+    wb, wsm = _split_tf32(W)
+    terms = [(ob, wb)] if passes == 1 else [(osm, wb), (ob, wsm), (ob, wb)]
+    K = obs.shape[-1]
+    parts = []
+    for k0 in range(0, K, kb):
+        halves = [torch.zeros(2, obs.shape[1], W.shape[1]) for _ in range(2)]
+        for s0 in range(k0, min(k0 + kb, K), 64):
+            for h in range(2):
+                a, b = s0 + 32 * h, min(s0 + 32 * h + 32, k0 + kb, K)
+                if a < b:
+                    halves[h] += sum(torch.einsum("rcn,nl->rcl", o[:, :, a:b], w[a:b])
+                                     for o, w in terms)
+        parts.append(halves[0] + halves[1])
+    with open(os.path.join(cuda_build.CSRC, "lagbank.cu")) as f:
+        ngroups = int(re.search(r"constexpr int kXGroups = (\d+);", f.read()).group(1))
+    groups = [torch.zeros_like(parts[0]) for _ in range(ngroups)]
+    for c, part in enumerate(parts):
+        groups[c % ngroups] += part
+    total = groups[0]
+    for g in groups[1:]:
+        total = total + g
+    r, i = total
+    return 0.5 * (r * r + i * i), torch.atan2(-i, r) / (2 * np.pi)
+
+
+@pytest.mark.parametrize("c,k,nl", [(5, 3000, 65), (4, 2500, 129), (3, 2000, 201)])
+def test_explicit_tf32x3_term_order_holds_fp32_tolerances(c, k, nl):
+    """The explicit form's 3xTF32 products in its term order (stage
+    chains, K halves, chunk groups) past 64 lags, against float64, its
+    float32 plain version and the JAX package's dots, within this file's
+    tolerances; one TF32 pass fails the same bar (PARITY deviation 12)."""
+    rng = np.random.default_rng(c * 100 + nl)
+    obs = rng.normal(size=(2, c, k)).astype(np.float32)
+    W = rng.normal(size=(k, nl)).astype(np.float32)
+    obs_t, w_t = torch.from_numpy(obs), torch.from_numpy(W)
+    kb = tlb.explicit_chunk(1, k, 132)
+    pw3, ph3 = _explicit_tf32_model(obs_t, w_t, kb, passes=3)
+    pw1, ph1 = _explicit_tf32_model(obs_t, w_t, kb, passes=1)
+    re64 = obs[0].astype(np.float64) @ W
+    im64 = obs[1].astype(np.float64) @ W
+    pw32, ph32 = tlb.lag_bank_correlate(obs_t, w_t)
+    pw_j, ph_j = _lag_bank_jnp(jnp.asarray(obs), jnp.asarray(W))
+    refs = {
+        "float64": (0.5 * (re64**2 + im64**2), np.arctan2(-im64, re64) / (2 * np.pi)),
+        "float32 plain": (pw32.numpy(), ph32.numpy()),
+        "jax": (np.asarray(pw_j), np.asarray(ph_j)),
+    }
+    for name, (ref_pw, ref_ph) in refs.items():
+        np.testing.assert_allclose(pw3.numpy(), ref_pw, rtol=POWER_RTOL, err_msg=name)
+        assert _phase_diff(ph3.numpy(), ref_ph).max() < PHASE_ATOL, name
+    ref_pw, ref_ph = refs["float64"]
+    one_pass_err = np.abs(pw1.numpy() / ref_pw - 1).max()
+    assert one_pass_err > 2 * POWER_RTOL or _phase_diff(ph1.numpy(), ref_ph).max() > PHASE_ATOL
+
+
+def test_workspace_covers_each_launch_and_is_reused():
+    """The workspace holds the kernel's counter header (the C source's
+    ``kXHeader``) and every chunk's partial sums; a stream's workspace
+    grows for a larger launch, is reused by smaller ones, and a new one
+    starts zeroed (the counters start at zero; each launch leaves them
+    zero)."""
+    with open(os.path.join(cuda_build.CSRC, "lagbank.cu")) as f:
+        header = int(re.search(r"constexpr int kXHeader = (\d+);", f.read()).group(1))
+    assert tlb._WS_HEADER == header
+    # the host receiver's launch at NL 57 and 403 on an H100's 132 SMs
+    kb = tlb.explicit_chunk(1, 200_000, 132)
+    assert tlb.workspace_floats(1, 24, 200_000, 57, kb) == header + 264 * 48 * 57
+    assert tlb.workspace_floats(1, 24, 200_000, 403, kb) == header + 264 * 48 * 403
+    # the window form's chunks of K_BLOCK, G channels
+    n = -(-200_000 // tlb.K_BLOCK)
+    assert tlb.workspace_floats(8, 24, 200_000, 57, tlb.K_BLOCK) == header + 8 * n * 48 * 57
+    dev, stream = torch.device("cpu"), -1
+    try:
+        small = tlb._workspace(dev, stream, 1000)
+        assert small.numel() == 1000 and bool((small == 0).all())
+        assert tlb._workspace(dev, stream, 800) is small
+        big = tlb._workspace(dev, stream, 5000)
+        assert big.numel() == 5000 and bool((big == 0).all())
+        assert tlb._workspace(dev, stream, 1000) is big
+        assert tlb._workspace(dev, stream - 1, 10) is not big  # another stream
+    finally:
+        for key in [k for k in tlb._WORKSPACES if k[1] < 0]:
+            del tlb._WORKSPACES[key]
+
+
 # -- the explicit form's split of K (pure Python; the kernel's launcher
-#    picks its ring and shared memory, tested on the card) ---------------
+#    picks its spans, ring and shared memory, tested on the card) --------
 @pytest.mark.parametrize("g,k,n_sm", [
     (1, 200_000, 132),  # the host receiver's shape on an H100 SXM
     (1, 200_000, 114),  # an H100 PCIe
@@ -200,14 +302,27 @@ def test_explicit_chunk_covers_k_and_fills_the_card(g, k, n_sm):
 
 def test_argtypes_match_the_c_entry():
     """The ctypes binding of ``lagbank_launch`` has the C declaration's
-    arguments, type for type (a mismatch would only show on the card)."""
+    arguments, type for type, and ``_Geometry`` the fields of
+    ``LagbankGeometry`` (a mismatch would only show on the card)."""
     with open(os.path.join(cuda_build.CSRC, "lagbank.cu")) as f:
         src = f.read()
-    decl = re.search(r'extern "C" int lagbank_launch\((.*?)\)', src, re.S).group(1)
     kinds = {"long long": ctypes.c_longlong, "int": ctypes.c_int,
              "float": ctypes.c_float}
+    body = re.search(r"struct LagbankGeometry \{(.*?)\};", src, re.S).group(1)
+    fields = []
+    for line in re.sub(r"//[^\n]*", "", body).split(";"):
+        if line.strip():
+            ctype, names = re.match(r"(long long|int|float)\s+(.*)", line.strip()).groups()
+            fields += [(n.strip(), kinds[ctype]) for n in names.split(",")]
+    assert fields == list(tlb._Geometry._fields_)
+    decl = re.search(r'extern "C" int lagbank_launch\((.*?)\)', src, re.S).group(1)
+    args = [a.strip() for a in decl.split(",")]
+    pointees = {"LagbankGeometry": tlb._Geometry}
     want = []
-    for arg in decl.split(","):
-        ctype = arg.strip().rsplit(" ", 1)[0].removeprefix("const ")
-        want.append(ctypes.c_void_p if ctype.endswith("*") else kinds[ctype])
+    for arg in args:
+        ctype = arg.rsplit(" ", 1)[0].removeprefix("const ")
+        if ctype.rstrip("*") in pointees:
+            want.append(ctypes.POINTER(pointees[ctype.rstrip("*")]))
+        else:
+            want.append(ctypes.c_void_p if ctype.endswith("*") else kinds[ctype])
     assert want == list(tlb._ARGTYPES)

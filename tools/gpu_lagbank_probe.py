@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
 """Where the lag-bank kernel's time goes, on a CUDA card (H100).
 
-    python3 tools/gpu_lagbank_probe.py
+    python3 tools/gpu_lagbank_probe.py [NL,NL,...]
+    python3 tools/gpu_lagbank_probe.py --trees TREE [TREE ...]
 
-Builds variants of ``amaranth_twstft_tpu_torch/csrc/lagbank.cu`` with
+With ``--trees`` it only compares checkouts of this repository (for
+example a ``git archive`` of the parent commit unpacked under the
+git-ignored ``build/``, and ``.``): ``chip_smoke.py --explicit-times``
+(chip_smoke's own measurement of the explicit form at NL 57, 65, 201 and
+403 and of ``lag_bank_correlate_channels``) runs on each tree in turn, in
+a process of its own, so "parent, change, change, parent" is
+``A B B A``.  Otherwise it builds variants of ``amaranth_twstft_tpu_torch/csrc/lagbank.cu`` with
 ``nvcc`` for ``sm_90a`` (all at once) into the git-ignored
-``amaranth_twstft_tpu_torch/build/probe/``:
+``amaranth_twstft_tpu_torch/build/probe/`` and prints each kernel entry's
+registers and spills:
 
 - ``kernel``: the source as it is;
-- ``no_products``: the consumer warps wait for each ring stage and
-  release it without computing (the bulk-copy ring and the second pass);
-- ``no_copies``: the producer arrives on each stage without copying (the
-  products on whatever the ring holds, and the second pass);
+- ``no_products``: the window form's consumer warps wait for each ring
+  stage and release it without computing (the bulk-copy ring and the
+  second pass);
+- ``no_copies``: the window form's producer arrives on each stage without
+  copying (the products on whatever the ring holds, and the second pass);
 - ``one_flush``: the tensor-core chain is added to the IEEE fp32 sum once
   per block instead of once per stage (the accuracy fix removed);
 - ``cvt_split``: the tf32 split by ``cvt.rna.tf32.f32`` instead of integer
@@ -19,9 +28,17 @@ Builds variants of ``amaranth_twstft_tpu_torch/csrc/lagbank.cu`` with
 - ``explicit``: the source as it is, launched on the explicit (K, NL)
   layout;
 - ``explicit_no_products``: the explicit form's consumer warps wait for
-  each ring stage and release it without computing;
-- ``explicit_no_copies``: the explicit form's producer arrives on each
-  stage without copying either operand.
+  each ring stage and release it without computing (the copies and the
+  in-launch sum of the partials);
+- ``explicit_no_copies``: the explicit form's producer warps arrive on
+  each stage without copying either operand;
+- ``explicit_no_sum``: the explicit form's reducer blocks wait for every
+  producer's arrival and skip the sum of the partials (the outputs are
+  not written);
+- ``explicit_no_tail``: the reducer blocks neither wait nor sum (the
+  producers' time, with the reducer blocks' start and exit);
+- ``explicit_ring4``: four ring stages at two blocks per SM, where the
+  launcher takes three.
 
 The variants are made by exact text substitutions in the kernel source;
 after an edit to the lines they replace, the probe stops with "the kernel
@@ -29,13 +46,14 @@ source no longer has ..." and its substitutions must be updated.
 
 On random data at the production group shape (G, P, K, NL) =
 (8, 24, 200 000, 57) for the window variants, and at the host receiver's
-(2, 24, 200 000) x (200 000, 57) for the explicit ones, it prints each
-variant's registers and spills, the float64 error of ``kernel``,
+(2, 24, 200 000) x (200 000, NL) for the explicit ones at each NL given
+(default 57, 65, 201 and 403), it prints the float64 error of ``kernel``,
 ``one_flush``, ``cvt_split``, ``explicit`` and the float32 plain versions
 (power error over the row maximum, phase error in cycles), the mean time
 per launch from CUDA events (variants in turns, forward then backward),
-the device time of each CUDA kernel from ``torch.profiler``, and the
-card's name and power limit.  Exits 1 without a card.
+each CUDA kernel's device time and launches per call from
+``torch.profiler``, and the card's name and power limit.  Exits 1 without
+a card.
 """
 
 from __future__ import annotations
@@ -52,7 +70,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 G, P, K, NLAG = 8, 24, 200_000, 28
-NL_EXPLICIT = 57  # the host receiver's lags
+NL_EXPLICIT = (57, 65, 201, 403)  # the host receiver's lags: --nlag 28, 32, 100, 201
 
 _CONSUME = """      if (lim >= kKPart) {
         consume_part<false>(acc, st, wv, tq, lim);
@@ -71,12 +89,10 @@ _FLUSH = """#pragma unroll
           }
 """
 _LOOP_END = "    }\n  }\n  __syncthreads();"
-_X_CONSUME = """      if (lim >= kXPart) {
-        consume_explicit<false>(acc, st, wt, wn, tq, lim);
-      } else if (lim > 0) {
-        consume_explicit<true>(acc, st, wt, wn, tq, lim);
-      }
+_X_CONSUME = """      if (nt > 0) consume_half(acc, st, wt, pitch, tq, lim);
 """
+_X_WAIT = "    while (ld_acquire(&a.ctr[1]) < (unsigned)a.nblocks) __nanosleep(32);\n"
+_X_SUM = "  explicit_reduce<WL>(a, reducer, red);\n"
 _INT_SPLIT = """  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) & 0xffffe000u;
 """
@@ -96,10 +112,10 @@ def variants(src: str) -> dict[str, str]:
     no_copies = _sub(src, "if (lane == 0) mbar_arrive_expect_tx(&full[s], row_bytes * rows);",
                      "if (lane == 0) mbar_arrive(&full[s]);")
     no_copies = _sub(no_copies, "        bulk_g2s(dst", "        if (false) bulk_g2s(dst")
-    x_no_copies = _sub(src, "mbar_arrive_expect_tx(&full[s], x_bytes * rows + w_bulk);",
-                       "mbar_arrive(&full[s]);")
-    for dst in ("wdst", "xdst"):
-        x_no_copies = _sub(x_no_copies, f"bulk_g2s({dst}", f"if (false) bulk_g2s({dst}")
+    # the explicit form's producer warps arrive with their bytes, then copy
+    x_no_copies = _sub(src, "if (lane == 0) mbar_arrive_expect_tx(&full[s], total);",
+                       "if (lane == 0) mbar_arrive(&full[s]);")
+    x_no_copies = _sub(x_no_copies, "if (bytes[m] > 0) bulk_g2s(", "if (false) bulk_g2s(")
     return {
         "kernel": src,
         "no_products": _sub(src, _CONSUME, ""),
@@ -108,7 +124,28 @@ def variants(src: str) -> dict[str, str]:
         "cvt_split": _sub(src, _INT_SPLIT, _CVT_SPLIT),
         "explicit_no_products": _sub(src, _X_CONSUME, ""),
         "explicit_no_copies": x_no_copies,
+        "explicit_no_sum": _sub(src, _X_SUM, ""),
+        "explicit_no_tail": _sub(_sub(src, _X_SUM, ""), _X_WAIT, ""),
+        "explicit_ring4": _sub(src, "int ring = wl <= 2 ? 3 : kXMaxRing;", "int ring = kXMaxRing;"),
     }
+
+
+def ptxas_report(out: str) -> dict[str, str]:
+    """Registers and spills of each kernel entry in ``nvcc -Xptxas -v``
+    output, by kernel name with its template arguments (``ILi4ELb1E``:
+    4, true)."""
+    reports: dict[str, str] = {}
+    name = None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(lagbank_\w+?_kernel)(I\w*?E)?(?:v|E)", m.group(1))
+            name = (k.group(1) + (k.group(2) or "")) if k else m.group(1)
+            reports[name] = ""
+        elif name and ("spill" in line or "registers" in line):
+            item = line.split("info    :")[-1].strip()
+            reports[name] = f"{reports[name]} | {item}" if reports[name] else item
+    return reports
 
 
 def build(srcs: dict[str, str], out_dir: str) -> dict:
@@ -126,65 +163,104 @@ def build(srcs: dict[str, str], out_dir: str) -> dict:
         jobs[name] = (cu, os.path.join(out_dir, f"lib{name}.so"))
     fns = {}
     for name, out in cuda_build.compile_all(jobs).items():
-        for kern in ("lagbank_window_kernel", "lagbank_explicit_kernel"):
-            at = out.find(kern)
-            report = [ln.strip() for ln in out[at:].splitlines()[1:4]
-                      if "spill" in ln or "registers" in ln]
-            print(f"{name}, {kern}: {' | '.join(report)}", flush=True)
-        fn = ctypes.CDLL(jobs[name][1]).lagbank_launch
-        fn.argtypes = lagbank._ARGTYPES
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        for kern, report in ptxas_report(out).items():
+            print(f"{name}, {kern}: {report}", flush=True)
+        lib = ctypes.CDLL(jobs[name][1])
+        lib.lagbank_launch.argtypes = lagbank._ARGTYPES
+        lib.lagbank_launch.restype = ctypes.c_int
+        fns[name] = lib
     return fns
 
 
-def launch(fn, obs, wav_ext):
-    """One launch of a variant's C entry on the window layout."""
-    from amaranth_twstft_tpu_torch.ops.lagbank import K_BLOCK
+_WORK: dict = {}
+
+
+def _call(lib, geo, obs, w, out_shape):
+    """One launch of a variant's C entry with geometry ``geo`` (a
+    ``lagbank._Geometry``); the workspace is kept per variant and shape,
+    zeroed once, as the port keeps one per stream."""
+    from amaranth_twstft_tpu_torch.ops import lagbank
+
+    ref = ctypes.byref(geo)
+    key = (id(lib), bytes(geo))
+    if key not in _WORK:
+        floats = lagbank.workspace_floats(geo.G, geo.P, geo.K, geo.NL, geo.kb)
+        _WORK[key] = torch.zeros(floats, device=obs.device)
+    work = _WORK[key]
+    out = torch.empty(4, *out_shape, device=obs.device)
+    err = lib.lagbank_launch(ref, obs.data_ptr(), w.data_ptr(), work.data_ptr(),
+                             work.numel(), out.data_ptr(),
+                             obs.device.index, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch failed (cudaError {err})")
+    return out.unbind(0)
+
+
+def launch(lib, obs, wav_ext):
+    """One launch of a variant on the window layout."""
+    from amaranth_twstft_tpu_torch.ops.lagbank import K_BLOCK, _Geometry
 
     g, _, p, k = obs.shape
     nl, e = 2 * NLAG + 1, wav_ext.shape[1]
-    nchunk = -(-k // K_BLOCK)
-    part = torch.empty(g * nchunk * 2 * p * nl, device=obs.device)
-    outs = [torch.empty(g, p, nl, device=obs.device) for _ in range(4)]
-    err = fn(obs.data_ptr(), 2 * p * k, p * k, k, wav_ext.data_ptr(), e, 1, -1,
-             2 * NLAG, e, g, p, k, nl, K_BLOCK, 0.5, part.data_ptr(),
-             *(o.data_ptr() for o in outs), obs.device.index,
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"launch failed (cudaError {err})")
-    return outs
+    geo = _Geometry(2 * p * k, p * k, k, e, 1, -1, 2 * NLAG, e, g, p, k, nl, K_BLOCK, 0.5)
+    return _call(lib, geo, obs, wav_ext, (g, p, nl))
 
 
-def launch_explicit(fn, obs_ri, w):
-    """One launch of a variant's C entry on the explicit (K, NL) layout,
-    split as ``lag_bank_correlate`` splits it."""
-    from amaranth_twstft_tpu_torch.ops.lagbank import explicit_chunk
+def launch_explicit(lib, obs_ri, w):
+    """One launch of a variant on the explicit (K, NL) layout, split as
+    ``lag_bank_correlate`` splits it."""
+    from amaranth_twstft_tpu_torch.ops.lagbank import _Geometry, explicit_chunk
 
     _, c, k = obs_ri.shape
     nl = w.shape[1]
     n_sm = torch.cuda.get_device_properties(obs_ri.device).multi_processor_count
-    chunk = explicit_chunk(1, k, n_sm)
-    part = torch.empty(-(-k // chunk) * 2 * c * nl, device=obs_ri.device)
-    outs = [torch.empty(1, c, nl, device=obs_ri.device) for _ in range(4)]
-    err = fn(obs_ri.data_ptr(), 0, c * k, k, w.data_ptr(), 0, nl, 1, 0, k * nl,
-             1, c, k, nl, chunk, 0.5,
-             part.data_ptr(), *(o.data_ptr() for o in outs), obs_ri.device.index,
-             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"launch failed (cudaError {err})")
-    return [o[0] for o in outs]
+    geo = _Geometry(0, c * k, k, 0, nl, 1, 0, k * nl, 1, c, k, nl,
+                    explicit_chunk(1, k, n_sm), 0.5)
+    return [o[0] for o in _call(lib, geo, obs_ri, w, (1, c, nl))]
 
 
-def main() -> int:
+def profile_kernels(fn, reps: int = 10) -> str:
+    """Each CUDA kernel's device time per call from ``torch.profiler`` over
+    ``reps`` calls, and how many times it ran per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [f"{(re.search(r'\w+_kernel', ev.key) or [ev.key[:40]])[0]} "
+            f"{ev.device_time_total / reps:.1f} us x {ev.count / reps:g}"
+            for ev in prof.key_averages() if ev.device_time_total > 0]
+    return "; ".join(rows)
+
+
+def compare_trees(trees: list[str]) -> int:
+    """``chip_smoke.py --explicit-times TREE`` for each tree in turn, each
+    in a process of its own (that tree's package and kernel build)."""
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    rc = 0
+    for tree in trees:
+        print(f"tree {tree}:", flush=True)
+        rc |= subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                              "--explicit-times", tree], timeout=900).returncode
+    return rc
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("gpu_lagbank_probe: no CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
+    if argv and argv[0] == "--trees":
+        return compare_trees(argv[1:])
     from amaranth_twstft_tpu_torch.ops import lagbank
     from amaranth_twstft_tpu_torch.utils import cuda_build
     from chip_smoke import cuda_ms
+
+    nls = [int(v) for v in argv[0].split(",")] if argv else list(NL_EXPLICIT)
 
     def errors(out, ref64) -> str:
         pow_err, ph_err = lagbank.lag_bank_errors(out, ref64)
@@ -206,37 +282,42 @@ def main() -> int:
     for name in ("kernel", "one_flush", "cvt_split"):
         print(f"{name} vs float64: {errors(launch(fns[name], obs, wav_ext), ref64)}")
     del ref64
-
-    # the explicit form at the host receiver's shape; `explicit` is the
-    # source as it is (the `kernel` build)
-    obs_ri = obs[0]
-    w = torch.randn(K, NL_EXPLICIT, generator=gen, device=dev)
-    ref64 = lagbank.lag_bank_plain(obs_ri.double(), w.double())
-    print(f"explicit form, float32 plain vs float64: "
-          f"{errors(lagbank.lag_bank_plain(obs_ri, w), ref64)}")
-    print(f"explicit vs float64: {errors(launch_explicit(fns['kernel'], obs_ri, w), ref64)}")
-    del ref64
-
     runs = {name: (lambda f=fns[name]: launch(f, obs, wav_ext))
             for name in fns if not name.startswith("explicit")}
-    runs["explicit"] = lambda: launch_explicit(fns["kernel"], obs_ri, w)
-    for name in ("explicit_no_products", "explicit_no_copies"):
-        runs[name] = lambda f=fns[name]: launch_explicit(f, obs_ri, w)
     names = list(runs)
     for name in names + names[::-1]:
         ms = cuda_ms(runs[name], 20)
         print(f"{name}: {ms:.4f} ms per launch (CUDA events, 20 launches)", flush=True)
     for name in names:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                runs[name]()
-            torch.cuda.synchronize()
-        rows = [f"{(re.search(r'\w+_kernel', ev.key) or [ev.key[:40]])[0]} "
-                f"{ev.device_time_total / 10:.1f} us"
-                for ev in prof.key_averages() if ev.device_time_total > 0]
-        print(f"{name} per launch (torch.profiler): {'; '.join(rows)}", flush=True)
+        print(f"{name} per launch (torch.profiler): {profile_kernels(runs[name])}",
+              flush=True)
+
+    # the explicit form at the host receiver's shape and lag counts;
+    # `explicit` is the source as it is (the `kernel` build)
+    obs_ri = obs[0]
+    for nl in nls:
+        w = torch.randn(K, nl, generator=gen, device=dev)
+        ref64 = lagbank.lag_bank_plain(obs_ri.double(), w.double())
+        print(f"NL {nl}: explicit form, float32 plain vs float64: "
+              f"{errors(lagbank.lag_bank_plain(obs_ri, w), ref64)}")
+        print(f"NL {nl}: explicit vs float64: "
+              f"{errors(launch_explicit(fns['kernel'], obs_ri, w), ref64)}")
+        del ref64
+        runs = {"explicit": lambda w=w: launch_explicit(fns["kernel"], obs_ri, w)}
+        for name in ("explicit_no_products", "explicit_no_copies", "explicit_no_sum",
+                     "explicit_no_tail", "explicit_ring4"):
+            runs[name] = lambda f=fns[name], w=w: launch_explicit(f, obs_ri, w)
+        names = list(runs)
+        for name in names + names[::-1]:
+            ms = cuda_ms(runs[name], 20)
+            print(f"NL {nl}: {name}: {ms:.4f} ms per launch (CUDA events, 20 launches)",
+                  flush=True)
+        for name in names:
+            print(f"NL {nl}: {name} per launch (torch.profiler): "
+                  f"{profile_kernels(runs[name])}", flush=True)
+        del w
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
