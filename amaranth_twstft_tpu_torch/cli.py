@@ -20,7 +20,14 @@ The JAX package's 14 verbs (``twstft-tpu``), with the same arguments:
 - ``dllpll`` — the DLL/PLL multi-channel receiver (``rxcomplex.cpp
   data.bin`` with ``sdr.param``): the device-banked receiver, or with
   ``--host`` the host-sequential one; ``--serve PORT`` broadcasts every
-  report to TCP subscribers;
+  report to TCP subscribers; ``--profile LOGDIR`` writes a
+  ``torch.profiler`` Chrome trace of the run, with the banked receiver's
+  own spans (``bank.pull``, the read's ``io.read_sc16.*``, ``bank.upload``
+  and its ``bank.pack.fill/stats/cast``, ``bank.process`` and its
+  ``bank.acquire``, ``bank.launch``, ``bank.fetch``, ``bank.report``)
+  beside the kernels, each with the stream's index of its second under
+  ``args.second``, so one second's read, upload and process are found
+  together;
 - ``batch`` — directory batch processing (``goprocess.sh``);
 - ``monitor`` — near-real-time follow of a growing capture (the
   ``zmq_rx.py`` role), ``--serve`` to broadcast, ``--connect`` to
@@ -50,6 +57,12 @@ def _add_device_arg(p) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the "
                         "kernels' plain versions)")
+
+
+def _add_profile_arg(p) -> None:
+    p.add_argument("--profile", metavar="LOGDIR", default=None,
+                   help="wrap the run in a torch.profiler trace (CPU and "
+                        "CUDA activity; a Chrome trace JSON in LOGDIR)")
 
 
 def _add_signal_args(p) -> None:
@@ -102,9 +115,7 @@ def _ranging_parsers(sub) -> None:
                    help="interpolation half-factor (grid = 2*nint+1); 1 "
                         "matches the reference's 3x grid, 4 cuts the "
                         "parabola bias (PARITY.md deviation 11)")
-    p.add_argument("--profile", metavar="LOGDIR", default=None,
-                   help="wrap the run in a torch.profiler trace (CPU and "
-                        "CUDA activity; a Chrome trace JSON in LOGDIR)")
+    _add_profile_arg(p)
     _add_device_arg(p)
 
 
@@ -217,6 +228,7 @@ def _dllpll_parser(sub) -> None:
     p.add_argument("--nlag", type=int, default=None)
     p.add_argument("--taps-map", default=None,
                    help="per-PRN taps, e.g. '100=9,101=27'")
+    _add_profile_arg(p)
 
 
 def _live_parsers(sub) -> None:
@@ -322,16 +334,16 @@ def main(argv: list[str] | None = None) -> int:
     _twoway_parsers(sub)
     _live_parsers(sub)
     args = parser.parse_args(argv)
-    if args.cmd == "goranging":
+    verbs = {"prn": _prn, "dllpll": _dllpll, "ranging": _ranging,
+             "goranging": _goranging, "claudio": _claudio, "batch": _batch,
+             "gofinal": _gofinal, "twoway": _twoway, "go1s": _go1s,
+             "campaign": _campaign, "monitor": _monitor, "acquire": _acquire,
+             "emit": _emit, "config": _config}
+    if args.cmd in ("goranging", "dllpll"):
         from amaranth_twstft_tpu_torch.utils.profiling import trace
 
         with trace(args.profile):
-            return _goranging(args)
-    verbs = {"prn": _prn, "dllpll": _dllpll, "ranging": _ranging,
-             "claudio": _claudio, "batch": _batch, "gofinal": _gofinal,
-             "twoway": _twoway, "go1s": _go1s, "campaign": _campaign,
-             "monitor": _monitor, "acquire": _acquire, "emit": _emit,
-             "config": _config}
+            return verbs[args.cmd](args)
     return verbs[args.cmd](args)
 
 

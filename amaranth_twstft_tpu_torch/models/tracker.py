@@ -40,6 +40,7 @@ the same updates and a bank on a 1x1 mesh is the unsharded bank.
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 from dataclasses import dataclass
@@ -70,6 +71,7 @@ from amaranth_twstft_tpu_torch.ops.peaks import (
 )
 from amaranth_twstft_tpu_torch.parallel.sharded import channel_slice
 from amaranth_twstft_tpu_torch.utils.platform import resolve_device
+from amaranth_twstft_tpu_torch.utils.profiling import span
 
 __all__ = [
     "TrackerBank",
@@ -595,6 +597,21 @@ class PendingSecond:
     have: np.ndarray  # (C,) which channels have samples this second
     host: torch.Tensor | None = None  # the pinned source of ``dev``
     copied: torch.cuda.Event | None = None  # the upload's end (card only)
+    second: int | None = None  # the stream's index of the second, for its spans
+
+
+def _pulled(seconds):
+    """``(k, item)`` for the k-th item of ``seconds``, each pull of the
+    iterator in a ``bank.pull`` span that gives the spans inside it (the
+    read) the second's index ``k``."""
+    it = iter(seconds)
+    for k in itertools.count():
+        with span("bank.pull", second=k):
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+        yield k, item
 
 
 class BankedReceiver:
@@ -808,91 +825,102 @@ class BankedReceiver:
         n_phys = len(self._phys_names)
         S = int(self.fs) + b.nobs
 
-        # second-start snapshot: SIC reconstruction must use THIS second's
-        # alignment (the reference's pt_prev, rxcomplex.cpp:513)
-        snapshot = [(s.pt, s.fc, s.df) for s in self.states]
+        with span("bank.pack.fill"):
+            # second-start snapshot: SIC reconstruction must use THIS
+            # second's alignment (the reference's pt_prev, rxcomplex.cpp:513)
+            snapshot = [(s.pt, s.fc, s.df) for s in self.states]
 
-        bufs = np.zeros((2 * n_phys, S, 2), dtype=np.float32)
-        raw = {}
-        for k, name in enumerate(self._phys_names):
-            smp = iq_by_phys.get(name)
-            if smp is None:
-                continue
-            m = min(len(smp), S)
-            raw[name] = smp
-            if self.real_input:
-                bufs[k, :m, 0] = np.real(smp[:m])
-            else:
-                bufs[k, :m, 0] = np.real(smp[:m])
-                bufs[k, :m, 1] = np.imag(smp[:m])
-            bufs[n_phys + k] = bufs[k]
-        if self._sic_any:
+            bufs = np.zeros((2 * n_phys, S, 2), dtype=np.float32)
+            raw = {}
             for k, name in enumerate(self._phys_names):
-                if name in raw:
-                    cleaned = self._mai_free(name, raw[name], snapshot)
-                    m = min(len(cleaned), S)
-                    bufs[n_phys + k, :m, 0] = np.real(cleaned[:m])
-                    if not self.real_input:
-                        bufs[n_phys + k, :m, 1] = np.imag(cleaned[:m])
+                smp = iq_by_phys.get(name)
+                if smp is None:
+                    continue
+                m = min(len(smp), S)
+                raw[name] = smp
+                if self.real_input:
+                    bufs[k, :m, 0] = np.real(smp[:m])
+                else:
+                    bufs[k, :m, 0] = np.real(smp[:m])
+                    bufs[k, :m, 1] = np.imag(smp[:m])
+                bufs[n_phys + k] = bufs[k]
+            if self._sic_any:
+                for k, name in enumerate(self._phys_names):
+                    if name in raw:
+                        cleaned = self._mai_free(name, raw[name], snapshot)
+                        m = min(len(cleaned), S)
+                        bufs[n_phys + k, :m, 0] = np.real(cleaned[:m])
+                        if not self.real_input:
+                            bufs[n_phys + k, :m, 1] = np.imag(cleaned[:m])
 
-        # noise floor per buffer row (rxcomplex px) at FULL precision,
-        # before any transfer quantization touches the samples (rx.cpp
-        # keeps px as the plain mean square of the raw samples — no
-        # sqrt(2) compensation — so real mode matches it)
-        nsec = int(self.fs)
-        px_rows = np.mean(
-            bufs[:, :nsec, 0] ** 2 + bufs[:, :nsec, 1] ** 2, axis=1
-        )
+        with span("bank.pack.stats"):
+            # noise floor per buffer row (rxcomplex px) at FULL precision,
+            # before any transfer quantization touches the samples (rx.cpp
+            # keeps px as the plain mean square of the raw samples — no
+            # sqrt(2) compensation — so real mode matches it)
+            nsec = int(self.fs)
+            px_rows = np.mean(
+                bufs[:, :nsec, 0] ** 2 + bufs[:, :nsec, 1] ** 2, axis=1
+            )
+            peak = float(np.max(np.abs(bufs)))
 
-        peak = float(np.max(np.abs(bufs)))
         scale = None
         t = self.transfer
-        if t == "int2":
-            # two complex samples per byte; S is even (checked in _init_bank)
-            packed, s = pack_int2_ri(bufs)
-            scale = np.float32(s)
-        elif t == "int4":
-            packed, s = pack_int4_ri(bufs)
-            scale = np.float32(s)
-        elif t == "int8":
-            s = peak / 127.0 if peak > 0 else 1.0
-            packed = np.clip(np.round(bufs / s), -127, 127).astype(np.int8)
-            scale = np.float32(s)
-        elif t == "f16" or (t == "auto" and peak < 6.0e4):
-            # f16 fits any int16-derived capture; overflow would poison
-            # the FFTs with inf, hence the range check in auto mode
-            packed = bufs.astype(np.float16)
-        else:
-            packed = bufs
+        with span("bank.pack.cast"):
+            if t == "int2":
+                # two complex samples per byte; S is even (checked in
+                # _init_bank)
+                packed, s = pack_int2_ri(bufs)
+                scale = np.float32(s)
+            elif t == "int4":
+                packed, s = pack_int4_ri(bufs)
+                scale = np.float32(s)
+            elif t == "int8":
+                s = peak / 127.0 if peak > 0 else 1.0
+                packed = np.clip(np.round(bufs / s), -127, 127).astype(np.int8)
+                scale = np.float32(s)
+            elif t == "f16" or (t == "auto" and peak < 6.0e4):
+                # f16 fits any int16-derived capture; overflow would poison
+                # the FFTs with inf, hence the range check in auto mode
+                packed = bufs.astype(np.float16)
+            else:
+                packed = bufs
 
         have = np.array(
             [self._phys_names[i % n_phys] in raw for i in self._buf_idx]
         )
         return packed, scale, px_rows, have
 
-    def upload_second(self, iq_by_phys: dict[str, np.ndarray]) -> PendingSecond:
+    def upload_second(self, iq_by_phys: dict[str, np.ndarray], *,
+                      second: int | None = None) -> PendingSecond:
         """Pack a second into pinned host memory and START its upload
         (``non_blocking`` on the copy stream, an event recorded after it);
         pass the handle to :meth:`process_second` later.  The handle holds
-        the pinned buffer until that second has been processed."""
-        packed, scale, px_rows, have = self._pack_second(iq_by_phys)
-        host = torch.from_numpy(packed)
-        copied = None
-        if self._copy_stream is not None:
-            host = host.pin_memory()
-            with torch.cuda.stream(self._copy_stream):
-                dev = host.to(self.device, non_blocking=True)
-                copied = torch.cuda.Event()
-                copied.record(self._copy_stream)
-        else:
-            dev = host
-        sdev = (
-            None if scale is None
-            else torch.tensor(float(scale), dtype=torch.float32,
-                              device=self.device)
-        )
+        the pinned buffer until that second has been processed, and
+        ``second`` (the stream's index of the second) for its spans."""
+        with span("bank.upload", second=second) as sp:
+            with span("bank.pack"):
+                packed, scale, px_rows, have = self._pack_second(iq_by_phys)
+            host = torch.from_numpy(packed)
+            copied = None
+            if self._copy_stream is not None:
+                host = host.pin_memory()
+                with torch.cuda.stream(self._copy_stream):
+                    dev = host.to(self.device, non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(self._copy_stream)
+            else:
+                dev = host
+            sdev = (
+                None if scale is None
+                else torch.tensor(float(scale), dtype=torch.float32,
+                                  device=self.device)
+            )
+            if sp is not None:
+                sp.counts.update(bytes=packed.nbytes, rows=packed.shape[0],
+                                 rows_used=len(np.unique(self._buf_idx)))
         return PendingSecond(dev=dev, scale=sdev, px_rows=px_rows,
-                             have=have, host=host, copied=copied)
+                             have=have, host=host, copied=copied, second=second)
 
     def process_second(
         self,
@@ -909,29 +937,33 @@ class BankedReceiver:
                     "process_second needs iq_by_phys or pending"
                 )
             pending = self.upload_second(iq_by_phys)
-        if pending.copied is not None:
-            # the compute stream reads the upload only once it has landed;
-            # the copy-stream allocation must outlive that reader
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(pending.copied)
-            pending.dev.record_stream(compute)
-        C = self.bank.n_channels
-        have = pending.have
-        cold = [
-            i
-            for i in range(C)
-            if have[i] and not self.states[i].is_trk
-        ]
-        acquired = self._acquire_batch(pending, cold) if cold else set()
+        with span("bank.process", second=pending.second):
+            if pending.copied is not None:
+                # the compute stream reads the upload only once it has
+                # landed; the copy-stream allocation must outlive that reader
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(pending.copied)
+                pending.dev.record_stream(compute)
+            C = self.bank.n_channels
+            have = pending.have
+            cold = [
+                i
+                for i in range(C)
+                if have[i] and not self.states[i].is_trk
+            ]
+            acquired = set()
+            if cold:
+                with span("bank.acquire"):
+                    acquired = self._acquire_batch(pending, cold)
 
-        warm = [
-            i
-            for i in range(C)
-            if have[i] and self.states[i].is_trk and i not in acquired
-        ]
-        reports: list[SecondReport | None] = [None] * C
-        if warm:
-            self._track_all(pending, warm, reports)
+            warm = [
+                i
+                for i in range(C)
+                if have[i] and self.states[i].is_trk and i not in acquired
+            ]
+            reports: list[SecondReport | None] = [None] * C
+            if warm:
+                self._track_all(pending, warm, reports)
         return reports
 
     def run_stream(self, seconds, *, prefetch: bool = True):
@@ -943,18 +975,20 @@ class BankedReceiver:
 
         Yields each second's reports list.  SIC configurations disable
         the prefetch: the cleaned rows must be rebuilt from the replica
-        state of the second BEFORE them."""
-        it = iter(seconds)
+        state of the second BEFORE them.  The spans of a second carry its
+        index in ``seconds``."""
+        it = _pulled(seconds)
         if self._sic_any or not prefetch:
-            for sec in it:
-                yield self.process_second(sec)
+            for k, sec in it:
+                yield self.process_second(pending=self.upload_second(sec, second=k))
             return
         try:
-            cur = self.upload_second(next(it))
+            k, raw = next(it)
         except StopIteration:
             return
-        for nxt_raw in it:
-            nxt = self.upload_second(nxt_raw)
+        cur = self.upload_second(raw, second=k)
+        for k, nxt_raw in it:
+            nxt = self.upload_second(nxt_raw, second=k)
             yield self.process_second(pending=cur)
             cur = nxt
         yield self.process_second(pending=cur)
@@ -1080,75 +1114,79 @@ class BankedReceiver:
     # -- tracking ---------------------------------------------------------
     def _track_all(self, pending: PendingSecond, warm, reports) -> None:
         b = self.bank
-        pt = np.array([s.pt for s in self.states], dtype=np.int32)
-        fc = np.array([s.fc for s in self.states], dtype=np.float64)
-        last_phi = np.array(
-            [s.last_phi for s in self.states], dtype=np.float32
-        )
-        theta, t1, t2 = phase_tables(b, pt, fc)
-        const, dev = self._const(), self.device
-        outs = self._step(
-            pending.dev,
-            const["wav_ext"],
-            const["psbb"],
-            self._buf_idx,
-            torch.from_numpy(pt).to(dev),
-            torch.from_numpy(theta).to(dev),
-            torch.from_numpy(t1).to(dev),
-            torch.from_numpy(t2).to(dev),
-            torch.from_numpy(last_phi).to(dev),
-            pending.scale,
-        )
+        with span("bank.launch"):
+            pt = np.array([s.pt for s in self.states], dtype=np.int32)
+            fc = np.array([s.fc for s in self.states], dtype=np.float64)
+            last_phi = np.array(
+                [s.last_phi for s in self.states], dtype=np.float32
+            )
+            theta, t1, t2 = phase_tables(b, pt, fc)
+            const, dev = self._const(), self.device
+            outs = self._step(
+                pending.dev,
+                const["wav_ext"],
+                const["psbb"],
+                self._buf_idx,
+                torch.from_numpy(pt).to(dev),
+                torch.from_numpy(theta).to(dev),
+                torch.from_numpy(t1).to(dev),
+                torch.from_numpy(t2).to(dev),
+                torch.from_numpy(last_phi).to(dev),
+                pending.scale,
+            )
         # ONE fetch for the whole bank's second (packed rows)
+        with span("bank.fetch"):
+            fetched = outs.cpu().numpy()
         c0p, c1p, c0g, c1g, chi2, cnt, pk_mean, last_phi_new, locked = (
-            unpack_track_outputs(outs.cpu().numpy())
+            unpack_track_outputs(fetched)
         )
         px_rows = pending.px_rows
 
-        for i in warm:
-            st, cfg = self.states[i], self.channels[i].cfg
-            if not locked[i]:
-                st.is_trk = False
-                st.last_phi = 0.0
-                self._log(log_line("lock lost   ", cfg, int(cnt[i]), b.bps))
-                continue
-            st.fc += float(np.round(c1p[i]))
-            st.df = float(c1p[i] - np.round(c1p[i]))
-            st.phi = float(np.mod(c0p[i] + 1000.0, 1.0))
-            gd_abs = float(c0g[i]) + st.pt * 1e9 / self.fs
-            st.sdgd = float(np.sqrt(max(float(chi2[i]), 0.0) / max(int(cnt[i]), 1)))
-            st.gd = gd_abs + 0.5 * float(c1g[i])
-            st.dg = float(c1g[i])
-            st.pt_prev = st.pt
-            # wrap by one code period (the reference writes pt unguarded,
-            # rxcomplex.cpp:744; a negative pt would be clamped by the
-            # slice and mis-align the next second)
-            st.pt = int(
-                np.round((gd_abs + float(c1g[i])) * self.fs / 1e9)
-            ) % b.nobs
-            st.pk = float(pk_mean[i])
-            st.last_phi = float(last_phi_new[i])
-            if st.is_first:
-                st.is_first = False
-                self._log(log_line("code lock   ", cfg, int(cnt[i]), b.bps))
-                continue
-            px = float(px_rows[self._buf_idx[i]])
-            rep = SecondReport(
-                fc_hz=st.fc + st.df,
-                phi_cycles=st.phi,
-                cnt=int(cnt[i]),
-                gd_ns=st.gd,
-                dg_ns_per_s=st.dg,
-                sdgd_ns=st.sdgd,
-                pk_dbm=_v2_to_dbm(st.pk),
-                pnoise_dbm=_v2_to_dbm(max(px - st.pk, 1e-30)),
-                locked=True,
-            )
-            reports[i] = rep
-            if self.out_dir:
-                path = os.path.join(self.out_dir, dat_filename(cfg))
-                with open(path, "a") as f:
-                    f.write(rep.row(b.nobs / self.fs) + "\n")
+        with span("bank.report"):
+            for i in warm:
+                st, cfg = self.states[i], self.channels[i].cfg
+                if not locked[i]:
+                    st.is_trk = False
+                    st.last_phi = 0.0
+                    self._log(log_line("lock lost   ", cfg, int(cnt[i]), b.bps))
+                    continue
+                st.fc += float(np.round(c1p[i]))
+                st.df = float(c1p[i] - np.round(c1p[i]))
+                st.phi = float(np.mod(c0p[i] + 1000.0, 1.0))
+                gd_abs = float(c0g[i]) + st.pt * 1e9 / self.fs
+                st.sdgd = float(np.sqrt(max(float(chi2[i]), 0.0) / max(int(cnt[i]), 1)))
+                st.gd = gd_abs + 0.5 * float(c1g[i])
+                st.dg = float(c1g[i])
+                st.pt_prev = st.pt
+                # wrap by one code period (the reference writes pt unguarded,
+                # rxcomplex.cpp:744; a negative pt would be clamped by the
+                # slice and mis-align the next second)
+                st.pt = int(
+                    np.round((gd_abs + float(c1g[i])) * self.fs / 1e9)
+                ) % b.nobs
+                st.pk = float(pk_mean[i])
+                st.last_phi = float(last_phi_new[i])
+                if st.is_first:
+                    st.is_first = False
+                    self._log(log_line("code lock   ", cfg, int(cnt[i]), b.bps))
+                    continue
+                px = float(px_rows[self._buf_idx[i]])
+                rep = SecondReport(
+                    fc_hz=st.fc + st.df,
+                    phi_cycles=st.phi,
+                    cnt=int(cnt[i]),
+                    gd_ns=st.gd,
+                    dg_ns_per_s=st.dg,
+                    sdgd_ns=st.sdgd,
+                    pk_dbm=_v2_to_dbm(st.pk),
+                    pnoise_dbm=_v2_to_dbm(max(px - st.pk, 1e-30)),
+                    locked=True,
+                )
+                reports[i] = rep
+                if self.out_dir:
+                    path = os.path.join(self.out_dir, dat_filename(cfg))
+                    with open(path, "a") as f:
+                        f.write(rep.row(b.nobs / self.fs) + "\n")
 
     def _log(self, line: str) -> None:
         self.log.append(line)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from amaranth_twstft_tpu_torch import native
+from amaranth_twstft_tpu_torch.utils.profiling import span
 
 __all__ = [
     "open_sc16",
@@ -93,13 +94,15 @@ def read_sc16_epochs(
     n = _n_epochs(mm.shape[0], start_sample, n_epochs, samples_per_epoch)
     if n == 0:
         return np.zeros((channels, 0, samples_per_epoch), dtype=dtype), 0
-    raw = np.asarray(
-        mm[start_sample : start_sample + n * samples_per_epoch]
-    ).astype(np.float32)
-    out = np.empty((channels, n, samples_per_epoch), dtype=dtype)
-    for c in range(channels):
-        z = raw[:, 2 * c] + 1j * raw[:, 2 * c + 1]
-        out[c] = z.reshape(n, samples_per_epoch)
+    with span("io.read_sc16.to_f32"):
+        raw = np.asarray(
+            mm[start_sample : start_sample + n * samples_per_epoch]
+        ).astype(np.float32)
+    with span("io.read_sc16.to_complex"):
+        out = np.empty((channels, n, samples_per_epoch), dtype=dtype)
+        for c in range(channels):
+            z = raw[:, 2 * c] + 1j * raw[:, 2 * c + 1]
+            out[c] = z.reshape(n, samples_per_epoch)
     return out, n
 
 

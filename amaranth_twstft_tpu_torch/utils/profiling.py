@@ -1,81 +1,123 @@
-"""Profiling: per-stage wall-clock timers and ``torch.profiler`` traces.
+"""Profiling: the program's own spans, and ``torch.profiler`` traces.
 
 The port's counterpart of the JAX package's ``utils/profiling.py``.  The
 reference instruments the epoch loop with ``std::chrono`` and prints
-``temps:`` in ms (``processing/CPP/main.cpp:462-516``).  Here: a stage
-timer that can synchronise the card before it reads the clock, and a
-``torch.profiler`` trace context over the CPU and (where there is one) the
-CUDA device, written as a Chrome trace (``chrome://tracing`` or Perfetto)
-in place of ``jax.profiler``'s TensorBoard directory.
+``temps:`` in ms (``processing/CPP/main.cpp:462-516``).  Here:
+
+- :func:`span` records a named host span while a ``torch.profiler``
+  records, and nothing otherwise: its start and end on
+  ``time.perf_counter``, the span open around it on the same thread, the
+  id of the ``second`` it belongs to (given, else its parent's) and
+  integer counts such as ``bytes``.  Each recorded span is also a range
+  of the profiler's under its name, with its ``second`` as an argument,
+  so it sits beside the kernels in the profiler's trace.  :func:`spans`
+  returns the records, counts included.
+- :func:`trace` is a ``torch.profiler`` trace context over the CPU and
+  (where there is one) the CUDA device, written as a Chrome trace
+  (``chrome://tracing`` or Perfetto) in place of ``jax.profiler``'s
+  TensorBoard directory; the spans of the traced block are in it, with
+  their ``second`` (where they have one) under ``args``.
+
+While nothing records, :func:`span` reads one flag and returns a shared
+no-op context: no clock is read and nothing is kept.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
+import itertools
 import os
+import threading
 import time
-from collections import defaultdict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["StageTimer", "device_sync", "trace"]
-
-
-def _tensors(x):
-    if isinstance(x, torch.Tensor):
-        yield x
-    elif isinstance(x, dict):
-        for v in x.values():
-            yield from _tensors(v)
-    elif isinstance(x, (list, tuple)):
-        for v in x:
-            yield from _tensors(v)
-    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
-        for f in dataclasses.fields(x):
-            yield from _tensors(getattr(x, f.name))
+__all__ = ["Span", "span", "spans", "trace"]
 
 
-def device_sync(x) -> None:
-    """Wait for every CUDA device that holds a tensor of ``x`` (a tensor,
-    or a list, tuple, dict or dataclass of them); CPU tensors need no
-    wait."""
-    for dev in {t.device for t in _tensors(x) if t.is_cuda}:
-        torch.cuda.synchronize(dev)
+class Span:
+    """One recorded span: ``name``, ``start`` and ``end`` (seconds on
+    ``time.perf_counter``), its ``id``, the ``parent`` span's id (None
+    where no span of its thread was open), ``second`` and ``counts``."""
+
+    __slots__ = ("id", "name", "parent", "second", "counts", "start", "end")
+
+    def __init__(self, id: int, name: str, parent: int | None,
+                 second: int | None, counts: dict[str, int]):
+        self.id, self.name, self.parent = id, name, parent
+        self.second, self.counts = second, counts
+        self.start = self.end = None
 
 
-class StageTimer:
-    """Accumulating per-stage wall-clock timer.
+class _Off:
+    """The context :func:`span` returns while nothing records."""
 
-    >>> t = StageTimer()
-    >>> with t.stage("fft"):
-    ...     y = do_work()
-    >>> t.report()
-    """
+    __slots__ = ()
 
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
+    def __enter__(self):
+        return None
 
-    @contextlib.contextmanager
-    def stage(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                device_sync(sync)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+    def __exit__(self, *exc):
+        return False
 
-    def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            lines.append(
-                f"{name}: {self.totals[name]*1e3:.1f} ms "
-                f"({self.counts[name]}x)"
-            )
-        return "\n".join(lines)
+
+_OFF = _Off()
+_records: list[Span] = []
+_ids = itertools.count()
+_local = threading.local()
+
+
+class _On:
+    """The context :func:`span` returns while a profiler records."""
+
+    __slots__ = ("span", "marker", "stack")
+
+    def __init__(self, name: str, second: int | None, counts: dict[str, int]):
+        self.span = Span(next(_ids), name, None, second, counts)
+
+    def __enter__(self) -> Span:
+        sp = self.span
+        stack = self.stack = _local.__dict__.setdefault("stack", [])
+        if stack:
+            sp.parent = stack[-1].id
+            if sp.second is None:
+                sp.second = stack[-1].second
+        # a function-scope range, not ``record_function``'s user
+        # annotation: the profiler gives a user annotation a second range
+        # on the device's timeline, over the kernels launched inside it,
+        # which readers of the device events would count as device work.
+        # The range's arguments hold the span's ``second``; a profiler
+        # that records shapes (``trace``) writes them to its Chrome trace
+        self.marker = torch._C._profiler._RecordFunctionFast(
+            sp.name, (), {} if sp.second is None else {"second": sp.second})
+        self.marker.__enter__()
+        sp.start = time.perf_counter()
+        stack.append(sp)
+        return sp
+
+    def __exit__(self, *exc):
+        self.span.end = time.perf_counter()
+        self.stack.pop()
+        self.marker.__exit__(*exc)
+        _records.append(self.span)
+        return False
+
+
+def span(name: str, second: int | None = None, **counts: int):
+    """A span named ``name`` around the block, recorded while a
+    ``torch.profiler`` records; ``second`` sets the id of the second the
+    span and the spans inside it belong to.  The context gives the
+    :class:`Span` (add counts known only at the end to its ``counts``),
+    or None while nothing records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _On(name, second, counts)
+
+
+def spans() -> list[Span]:
+    """The spans recorded in this process so far, each once it ended."""
+    return list(_records)
 
 
 @contextlib.contextmanager
@@ -83,7 +125,8 @@ def trace(logdir: str | None):
     """``torch.profiler`` trace of the block (no-op when ``logdir`` is
     None): CPU activity, and CUDA activity when a card is present; the
     Chrome trace is written to ``logdir/trace_<pid>_<ns>.json`` when the
-    block ends, also when it raises."""
+    block ends, also when it raises.  It records the ops' shapes, and
+    with them the ``second`` of each span."""
     if logdir is None:
         yield
         return
@@ -93,7 +136,7 @@ def trace(logdir: str | None):
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    prof = profile(activities=acts)
+    prof = profile(activities=acts, record_shapes=True)
     prof.__enter__()
     try:
         yield

@@ -544,21 +544,6 @@ def test_retry_until_valid():
 # ----------------------------------------------------------------------
 # profiling
 # ----------------------------------------------------------------------
-def test_stage_timer_and_device_sync():
-    t = profiling.StageTimer()
-    x = torch.ones(3)
-    for _ in range(3):
-        with t.stage("a", sync=x):
-            time.sleep(0.01)
-    with t.stage("b", sync={"k": [x, (x,)]}):
-        pass
-    assert t.counts == {"a": 3, "b": 1}
-    assert t.totals["a"] >= 0.03
-    lines = t.report().splitlines()
-    assert lines[0].startswith("a: ") and lines[0].endswith("(3x)")
-    profiling.device_sync(None)  # nothing to wait for
-
-
 def test_trace_writes_a_cpu_chrome_trace(tmp_path):
     logdir = tmp_path / "prof"
     with profiling.trace(str(logdir)):
