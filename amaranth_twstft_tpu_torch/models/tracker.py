@@ -17,6 +17,12 @@ whole bank runs on the card each second:
   the host pays one fetch per second;
 - the host applies the tiny per-second state updates in float64.
 
+Each second's samples reach the card as float32 re/im rows; one kernel
+there (:func:`amaranth_twstft_tpu_torch.ops.pack.pack_rows`) rounds them to
+the float16 the steps read and sums each row's noise power, where the
+JAX package packs on the host (:meth:`BankedReceiver._pack_device`).  The
+CPU, SIC banks, real input and the integer transfers keep the host pack.
+
 Carrier-phase continuity in float32 uses host-computed float64 phase
 tables: the LO phase ``frac(fc/fs * (pt + n))`` is split as
 ``theta[code] + t1[block] + t2[intra]`` (each < 1 cycle), so the device
@@ -43,6 +49,7 @@ from __future__ import annotations
 import itertools
 import math
 import os
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -64,6 +71,7 @@ from amaranth_twstft_tpu_torch.models.dllpll import (
 )
 from amaranth_twstft_tpu_torch.ops.correlator import quick_xcorr_snr
 from amaranth_twstft_tpu_torch.ops.lagbank import lag_bank_windows
+from amaranth_twstft_tpu_torch.ops.pack import pack_rows
 from amaranth_twstft_tpu_torch.ops.peaks import (
     hrc_correction,
     median_iqr_sigma,
@@ -593,11 +601,50 @@ class PendingSecond:
 
     dev: torch.Tensor  # device tensor in the transfer format
     scale: torch.Tensor | None  # device scalar for int8/int4/int2, else None
-    px_rows: np.ndarray  # (n_buf,) noise power, computed PRE-quantization
+    # (n_buf,) noise power, computed PRE-quantization: float64 on the device
+    # from the device pack, fetched with the second's results
+    px_rows: np.ndarray | torch.Tensor
     have: np.ndarray  # (C,) which channels have samples this second
     host: torch.Tensor | None = None  # the pinned source of ``dev``
     copied: torch.cuda.Event | None = None  # the upload's end (card only)
     second: int | None = None  # the stream's index of the second, for its spans
+    slot: "_PackSlot | None" = None  # the device pack's buffers, until processed
+
+
+class _PackSlot:
+    """The buffers of one second of the device pack, reused from second to
+    second: pinned float32 re/im rows, their copy on the device, its
+    float16 rounding (none for ``transfer="f32"``) and the (rows + 1,)
+    float64 statistics of :func:`pack_rows`.  On the CPU the rows are
+    their own device copy.
+
+    A slot is held from the pack until its second has been processed (or
+    its :class:`PendingSecond` dropped): ``owner`` is then None or dead.
+    ``copied`` is recorded on the copy stream after the upload and the
+    kernel, ``done`` on the compute stream after the second that read the
+    slot; the next pack into it waits for both."""
+
+    def __init__(self, shape: tuple[int, int, int], device: torch.device,
+                 half: bool):
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(shape, dtype=torch.float32, pin_memory=cuda)
+        self.rows = torch.empty(shape, dtype=torch.float32, device=device) if cuda else self.host
+        self.half = torch.empty(shape, dtype=torch.float16, device=device) if half else None
+        self.stats = torch.empty(shape[0] + 1, dtype=torch.float64, device=device)
+        self.out: torch.Tensor | None = None  # what this second's steps read
+        self.copied: torch.cuda.Event | None = None
+        self.done: torch.cuda.Event | None = None
+        self.owner = None
+
+    def free(self) -> bool:
+        return self.owner is None or self.owner() is None
+
+    def release(self, stream) -> None:
+        """Its second has been processed on ``stream`` (None on the CPU)."""
+        if stream is not None:
+            self.done = torch.cuda.Event()
+            self.done.record(stream)
+        self.owner = None
 
 
 def _pulled(seconds):
@@ -748,6 +795,13 @@ class BankedReceiver:
         self.states = [TrackState(fc=c.cfg.fc_init_hz) for c in built]
         self._phys_names = sorted({c.cfg.physical for c in built})
         self._sic_any = any(c.cfg.is_sic for c in built)
+        # the device pack serves a card's float transfers of complex input
+        # without SIC rows (those are complex128 host work); a ring of
+        # buffers, one slot per second in flight, made at first use
+        self._device_pack = (self.device.type == "cuda" and not self._sic_any
+                             and not self.real_input
+                             and self.transfer in ("auto", "f16", "f32"))
+        self._slots: list[_PackSlot] = []
         n_phys = len(self._phys_names)
         # buffer row per channel: raw phys, or the SIC-cleaned row
         self._buf_idx = np.array(
@@ -818,6 +872,72 @@ class BankedReceiver:
         return changed
 
     def _pack_second(self, iq_by_phys: dict[str, np.ndarray]):
+        """Pack a second for the steps: ``(packed, scale, px_rows, have)``,
+        on the card (:meth:`_pack_device`, whose ``packed`` is the
+        :class:`_PackSlot` already in flight) where the receiver takes it,
+        else on the host (:meth:`_pack_host`)."""
+        if self._device_pack:
+            return self._pack_device(iq_by_phys)
+        return self._pack_host(iq_by_phys)
+
+    def _take_slot(self, shape: tuple[int, int, int]) -> _PackSlot:
+        """A free slot of the device pack's ring (a new one where every slot
+        holds a second in flight), held for the caller."""
+        slot = next((s for s in self._slots if s.free()), None)
+        if slot is None:
+            slot = _PackSlot(shape, self.device, half=self.transfer != "f32")
+            self._slots.append(slot)
+        slot.owner = lambda: slot  # upload_second hands it to its PendingSecond
+        if slot.copied is not None:
+            slot.copied.synchronize()  # the last upload from its pinned rows
+        return slot
+
+    def _pack_device(self, iq_by_phys: dict[str, np.ndarray]):
+        """The device pack: stage the raw rows into a pinned slot as float32
+        re/im (numpy's rounding of complex128, as :meth:`_pack_host`'s
+        fill; zeros past an input's end and for a missing input), upload
+        them on the copy stream, and there round them to float16 and sum
+        their noise power in one launch (:func:`pack_rows`), so the
+        float16 rows equal the host pack's bit for bit.  Only the n_phys
+        raw rows exist (no SIC row is read).  ``px_rows`` stays on the
+        device as float64 until the bank's fetch; ``transfer="auto"``
+        reads the peak back, its only wait."""
+        n_phys = len(self._phys_names)
+        S = int(self.fs) + self.bank.nobs
+        cs = self._copy_stream
+        slot = self._take_slot((n_phys, S, 2))
+        with span("bank.pack.fill"):
+            rows = slot.host.numpy().view(np.complex64)[..., 0]
+            for k, name in enumerate(self._phys_names):
+                smp = iq_by_phys.get(name)
+                m = 0
+                if smp is not None:
+                    m = min(len(smp), S)
+                    rows[k, :m] = smp[:m]
+                rows[k, m:] = 0
+            if cs is not None:
+                if slot.done is not None:
+                    cs.wait_event(slot.done)  # its last second has been read
+                with torch.cuda.stream(cs):
+                    slot.rows.copy_(slot.host, non_blocking=True)
+        # on the CPU (no copy stream) torch.cuda.stream(None) does nothing
+        with span("bank.pack.stats"), torch.cuda.stream(cs):
+            pack_rows(slot.rows, int(self.fs), slot.half, slot.stats)
+            if cs is not None:
+                slot.copied = torch.cuda.Event()
+                slot.copied.record(cs)
+        with span("bank.pack.cast"), torch.cuda.stream(cs):
+            t = self.transfer
+            if t == "auto":
+                # f16 overflow would poison the FFTs with inf
+                t = "f16" if float(slot.stats[n_phys]) < 6.0e4 else "f32"
+            slot.out = slot.half if t == "f16" else slot.rows
+        have = np.array(
+            [iq_by_phys.get(self._phys_names[i]) is not None for i in self._buf_idx]
+        )
+        return slot, None, slot.stats[:n_phys], have
+
+    def _pack_host(self, iq_by_phys: dict[str, np.ndarray]):
         """Host half of a second: fill the (2*n_phys, S, 2) buffer (raw
         rows + SIC-cleaned rows), measure the noise power at full
         precision, and quantize/cast to the transfer format."""
@@ -897,30 +1017,38 @@ class BankedReceiver:
         (``non_blocking`` on the copy stream, an event recorded after it);
         pass the handle to :meth:`process_second` later.  The handle holds
         the pinned buffer until that second has been processed, and
-        ``second`` (the stream's index of the second) for its spans."""
+        ``second`` (the stream's index of the second) for its spans.  The
+        device pack's rows are in flight when :meth:`_pack_second` returns;
+        the handle then holds its slot."""
         with span("bank.upload", second=second) as sp:
             with span("bank.pack"):
                 packed, scale, px_rows, have = self._pack_second(iq_by_phys)
-            host = torch.from_numpy(packed)
+            slot = packed if isinstance(packed, _PackSlot) else None
             copied = None
-            if self._copy_stream is not None:
-                host = host.pin_memory()
+            if slot is not None:
+                host, dev, copied = slot.host, slot.out, slot.copied
+            elif self._copy_stream is not None:
+                host = torch.from_numpy(packed).pin_memory()
                 with torch.cuda.stream(self._copy_stream):
                     dev = host.to(self.device, non_blocking=True)
                     copied = torch.cuda.Event()
                     copied.record(self._copy_stream)
             else:
-                dev = host
+                host = dev = torch.from_numpy(packed)
             sdev = (
                 None if scale is None
                 else torch.tensor(float(scale), dtype=torch.float32,
                                   device=self.device)
             )
             if sp is not None:
-                sp.counts.update(bytes=packed.nbytes, rows=packed.shape[0],
-                                 rows_used=len(np.unique(self._buf_idx)))
-        return PendingSecond(dev=dev, scale=sdev, px_rows=px_rows,
-                             have=have, host=host, copied=copied, second=second)
+                sp.counts.update(bytes=host.nbytes, rows=host.shape[0],
+                                 rows_used=len(np.unique(self._buf_idx)),
+                                 device_pack=int(slot is not None))
+        pending = PendingSecond(dev=dev, scale=sdev, px_rows=px_rows, have=have,
+                                host=host, copied=copied, second=second, slot=slot)
+        if slot is not None:
+            slot.owner = weakref.ref(pending)
+        return pending
 
     def process_second(
         self,
@@ -938,12 +1066,16 @@ class BankedReceiver:
                 )
             pending = self.upload_second(iq_by_phys)
         with span("bank.process", second=pending.second):
+            compute = None
             if pending.copied is not None:
                 # the compute stream reads the upload only once it has
-                # landed; the copy-stream allocation must outlive that reader
+                # landed; the copy-stream allocation must outlive that
+                # reader (a slot's buffers are the receiver's, and wait
+                # for its release instead)
                 compute = torch.cuda.current_stream(self.device)
                 compute.wait_event(pending.copied)
-                pending.dev.record_stream(compute)
+                if pending.slot is None:
+                    pending.dev.record_stream(compute)
             C = self.bank.n_channels
             have = pending.have
             cold = [
@@ -964,6 +1096,8 @@ class BankedReceiver:
             reports: list[SecondReport | None] = [None] * C
             if warm:
                 self._track_all(pending, warm, reports)
+            if pending.slot is not None:
+                pending.slot.release(compute)
         return reports
 
     def run_stream(self, seconds, *, prefetch: bool = True):
@@ -1117,9 +1251,14 @@ class BankedReceiver:
         with span("bank.launch"):
             pt = np.array([s.pt for s in self.states], dtype=np.int32)
             fc = np.array([s.fc for s in self.states], dtype=np.float64)
-            last_phi = np.array(
-                [s.last_phi for s in self.states], dtype=np.float32
-            )
+            # the unwrapped carrier phase grows by the residual Doppler,
+            # up to half a cycle a second: the step takes it less its whole
+            # cycles, which move no reported phase, so its float32 phase fit
+            # keeps its resolution however long the stream runs; the host
+            # adds them back in float64
+            phi = np.array([s.last_phi for s in self.states], dtype=np.float64)
+            whole = np.round(phi)
+            last_phi = (phi - whole).astype(np.float32)
             theta, t1, t2 = phase_tables(b, pt, fc)
             const, dev = self._const(), self.device
             outs = self._step(
@@ -1137,10 +1276,12 @@ class BankedReceiver:
         # ONE fetch for the whole bank's second (packed rows)
         with span("bank.fetch"):
             fetched = outs.cpu().numpy()
+            px_rows = pending.px_rows
+            if isinstance(px_rows, torch.Tensor):
+                px_rows = px_rows.cpu().numpy()
         c0p, c1p, c0g, c1g, chi2, cnt, pk_mean, last_phi_new, locked = (
             unpack_track_outputs(fetched)
         )
-        px_rows = pending.px_rows
 
         with span("bank.report"):
             for i in warm:
@@ -1165,7 +1306,7 @@ class BankedReceiver:
                     np.round((gd_abs + float(c1g[i])) * self.fs / 1e9)
                 ) % b.nobs
                 st.pk = float(pk_mean[i])
-                st.last_phi = float(last_phi_new[i])
+                st.last_phi = float(last_phi_new[i]) + float(whole[i])
                 if st.is_first:
                     st.is_first = False
                     self._log(log_line("code lock   ", cfg, int(cnt[i]), b.bps))

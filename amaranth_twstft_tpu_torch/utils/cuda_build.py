@@ -2,10 +2,10 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, in the git-ignored
-``amaranth_twstft_tpu_torch/build/`` directory, at first use (or ahead of
-time by :func:`build_all`, which starts one ``nvcc`` per source, all
-together).  A library is rebuilt when its source is newer.  Loaded with
-``ctypes``; nothing here runs at import time.
+``amaranth_twstft_tpu_torch/build/`` directory, at the first use of any
+(or ahead of time) by :func:`build_all`, which starts one ``nvcc`` per
+stale source, all together.  A library is rebuilt when its source is
+newer.  Loaded with ``ctypes``; nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 #: kernel library name -> its source file under ``csrc/``
-SOURCES = {"lagbank": "lagbank.cu"}
+SOURCES = {"lagbank": "lagbank.cu", "pack": "pack.cu"}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -91,11 +91,13 @@ def compile_all(jobs: dict[str, tuple[str, str]]) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of kernel library ``name``, built if needed."""
+    """The ctypes handle of kernel library ``name``, built if needed, with
+    every other stale library beside it (one ``nvcc`` each, together: the
+    first launch of a run pays one build's wall, not each)."""
     lib = _LOADED.get(name)
     if lib is None:
         if _stale(name):
-            build_all([name])
+            build_all()
         lib = ctypes.CDLL(_paths(name)[1])
         _LOADED[name] = lib
     return lib

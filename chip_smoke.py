@@ -306,8 +306,9 @@ numbers per slice (``{"ranging": ...}``, ``{"batch": ...}``,
 among them), one ``{"kernels": [...]}`` line (the window form's entry,
 with phase D's launches and phase W's launches and shapes among them, and
 the explicit form's entry, ``lagbank_explicit``, with step 20's numbers
-and, under ``shapes``, those of every explicit-form launch shape), and as
-its last line
+and, under ``shapes``, those of every explicit-form launch shape, and the
+device pack's entry, ``pack``: its launches on the main path, one a second,
+and ``--pack-times``' check and times), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Scratch files go to the git-ignored ``amaranth_twstft_tpu_torch/build/``.
 """
@@ -2942,8 +2943,8 @@ def run_bank(rx, secs: list, prefetch: bool = True, between=None) -> dict:
     dtypes: set = set()
     upload = rx.upload_second
 
-    def counted_upload(sec):
-        pending = upload(sec)
+    def counted_upload(sec, **kw):
+        pending = upload(sec, **kw)
         sizes.append(pending.dev.numel() * pending.dev.element_size())
         dtypes.add(str(pending.dev.dtype))
         return pending
@@ -3625,6 +3626,52 @@ def fresh_explicit_times(tree: str, seed: int) -> dict:
     if run.returncode != 0:
         raise RuntimeError(f"explicit_times({tree}) failed: {run.stderr[-2000:]}")
     return json.loads(run.stdout.splitlines()[-1])
+
+
+#: the bank's second at production: fs + nobs samples of each of two inputs
+PACK_SHAPE = (2, 5_200_000, 2)
+
+
+def pack_times(seed: int) -> dict:
+    """The device pack's kernel (``ops/pack.pack_rows``) at the bank's
+    second, PACK_SHAPE float32 rows of int16-valued samples: its float16
+    bits and statistics against the plain version, two launches' bits,
+    its time by CUDA events (50 launches), its device time and kernels per
+    call, the plain version's time on the card, and its bytes floor (the
+    rows read once, their float16 written once, at 3.35 TB/s)."""
+    from amaranth_twstft_tpu_torch.ops import pack
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-2048, 2048, PACK_SHAPE, generator=gen, device=dev).float()
+    nsum = 5_000_000
+    half = torch.empty_like(x, dtype=torch.float16)
+    stats = torch.empty(PACK_SHAPE[0] + 1, dtype=torch.float64, device=dev)
+
+    def call():
+        pack.pack_rows(x, nsum, half, stats)
+
+    call()
+    h1, s1 = half.clone(), stats.clone()
+    call()
+    same = torch.equal(h1.view(torch.int16), half.view(torch.int16)) and torch.equal(s1, stats)
+    want_h, want_s = pack.pack_rows_plain(x, nsum)
+    bits = torch.equal(want_h.view(torch.int16), half.view(torch.int16))
+    rel = float(((stats - want_s).abs() / want_s.abs()).max())
+    if not (same and bits and rel < 1e-12):
+        raise RuntimeError(f"pack kernel: deterministic {same}, bits {bits}, stats {rel}")
+    nbytes = x.numel() * 6 + stats.numel() * 8
+    device_ms, ops = per_call_device(call)
+    out = {"shape": list(PACK_SHAPE), "nsum": nsum, "ms": cuda_ms(call, 50),
+           "device_ms": device_ms, "kernels_per_call": ops, "host_ms": host_ms(call),
+           "plain_ms": cuda_ms(lambda: pack.pack_rows_plain(x, nsum), 10),
+           "bound_ms": 1e3 * nbytes / 3.35e12, "bound_by": "bytes", "bytes": nbytes,
+           "stats_rel_err": rel, "deterministic": same, "bits_equal": bits}
+    log(f"pack kernel at {PACK_SHAPE}: {out['ms']:.4f} ms (CUDA events), device "
+        f"{device_ms} ms in {ops} kernels, host {out['host_ms']:.4f} ms; plain "
+        f"{out['plain_ms']:.4f} ms; bytes floor {out['bound_ms']:.4f} ms; float16 bits "
+        f"equal, stats within {rel:.2e}, two launches the same bits")
+    return out
 
 
 def explicit_entry(k: dict, walk_shapes: list) -> dict:
@@ -4331,6 +4378,9 @@ def main() -> int:
                     help="only print explicit_times() of the checkout TREE as one JSON line "
                          "(W1 runs it in a fresh process; run it on two trees to compare "
                          "them)")
+    ap.add_argument("--pack-times", action="store_true",
+                    help="only check and time the device pack's kernel at the bank's "
+                         "second and print one JSON line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4340,10 +4390,13 @@ def main() -> int:
     if args.explicit_times:
         print(json.dumps(explicit_times(args.explicit_times, args.seed)), flush=True)
         return 0
+    if args.pack_times:
+        print(json.dumps(pack_times(args.seed)), flush=True)
+        return 0
     os.environ.setdefault("TWSTFT_BANK_CACHE", "")  # no ~300 MB cache entry
 
     from amaranth_twstft_tpu_torch import native
-    from amaranth_twstft_tpu_torch.ops import lagbank
+    from amaranth_twstft_tpu_torch.ops import lagbank, pack
     from amaranth_twstft_tpu_torch.ops.lfsr import find_mseq_taps
     from amaranth_twstft_tpu_torch.utils import cuda_build
 
@@ -4378,6 +4431,7 @@ def main() -> int:
 
     # -- 3. the main path -------------------------------------------------
     lagbank.lag_bank_kernel.launches = 0
+    pack.pack_rows.launches = 0
     t0 = time.perf_counter()
     main_reports: list = []
     reps, times, e2e_walls, rxlog, lb_inputs = run_dllpll(work, truths, cap, dev,
@@ -4385,6 +4439,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_total = time.perf_counter() - t0
     launches = lagbank.lag_bank_kernel.launches
+    pack_launches = pack.pack_rows.launches
     tracked_seconds = N_SECONDS - 1  # second 0 acquires, seconds 1.. track
     n_chan = 2 * N_PER_INPUT
     walls = times["bank"]
@@ -4412,6 +4467,11 @@ def main() -> int:
         raise RuntimeError("no channel reached code lock")
     log(f"lag-bank launches on the main path: {launches} "
         f"({per_sec:g} per tracked second)")
+    if pack_launches != N_SECONDS:
+        raise RuntimeError(f"{pack_launches} pack launches on the main path, "
+                           f"{N_SECONDS} seconds")
+    log(f"pack launches on the main path: {pack_launches} (one a second)")
+    pack_k = pack_times(args.seed)
 
     # -- 5. kernel vs plain on the main path's inputs ----------------------
     lagbank.lag_bank_kernel.launches = 0  # the checks below are not the main path
@@ -4642,7 +4702,14 @@ def main() -> int:
         "f64_err_slow_geometry": slow["f64_err"],
         "launches_walk": {**walk["bank"]["launches"], **walk["host"]["launches"]},
         "walk_shapes": walk["bank"]["kernel"] + walk["host"]["kernel"],
-    }, explicit_entry(host["kernel"], walk["host"]["kernel"])]}))
+    }, explicit_entry(host["kernel"], walk["host"]["kernel"]), {
+        "name": "pack",
+        "route": "cuda",
+        "source": "amaranth_twstft_tpu_torch/csrc/pack.cu",
+        "replaces": None,
+        "launches": pack_launches,
+        **pack_k,
+    }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1006,6 +1006,143 @@ def test_multibank_on_card_matches_cpu(cuda):
     assert min(err, 4000 * 1e4 - err) < 0.25 * 1e4
 
 
+# ------------------------------------------------------- the device pack
+def _bits16(t: torch.Tensor) -> torch.Tensor:
+    return t.cpu().view(torch.int16)
+
+
+@pytest.mark.parametrize("rows, samples, nsum, half", [
+    (2, 5_200_000, 5_000_000, True),  # the bench's second: fs + nobs samples
+    (3, 1_000_001, 999_999, True),  # ragged: odd rows start off 16 bytes
+    (1, 77, 77, True),  # one block, fewer floats than one thread's loads
+    (2, 5_200_000, 5_000_000, False),  # transfer="f32": sums only
+])
+def test_pack_kernel_matches_plain(cuda, rows, samples, nsum, half):
+    """The pack kernel against its plain version: the float16 rows bit for
+    bit (both round to nearest even), the float64 statistics within 1e-12
+    (sums in other orders), and two launches give the same bits."""
+    from amaranth_twstft_tpu_torch.ops import pack as tpack
+
+    g = torch.Generator().manual_seed(rows * samples)
+    x = (torch.randn((rows, samples, 2), generator=g) * 3000.0).round()
+    x[0, 5] = 0.333  # a value float16 rounds
+    x[-1, -1, 1] = -7.0e4  # the peak, past nsum and past float16's range
+    xd = x.to(cuda)
+    want_h, want_s = tpack.pack_rows_plain(x, nsum)
+    outs = []
+    for _ in range(2):
+        h = torch.empty_like(xd, dtype=torch.float16) if half else None
+        s = torch.empty(rows + 1, dtype=torch.float64, device=cuda)
+        before = tpack.pack_rows.launches
+        tpack.pack_rows(xd, nsum, h, s)
+        assert tpack.pack_rows.launches == before + 1
+        torch.cuda.synchronize()
+        outs.append((h, s.cpu()))
+    for h, s in outs:
+        if half:
+            assert torch.equal(_bits16(h), _bits16(want_h))
+        torch.testing.assert_close(s, want_s, rtol=1e-12, atol=0)
+        assert float(s[rows]) == 7.0e4
+    assert torch.equal(outs[0][1], outs[1][1])
+    if half:
+        assert torch.equal(_bits16(outs[0][0]), _bits16(outs[1][0]))
+
+
+def _noise_close(a, b):
+    """``pnoise_dbm`` is the dBm of ``px - pk``: the host pack's float32
+    ``px`` (numpy's pairwise mean) and the device pack's float64 sum differ
+    by ``px``'s float32 rounding (1e-6 relative), which the subtraction
+    magnifies by ``px / (px - pk)`` in dB.  So the noise powers are
+    compared, within 1e-6 of ``px``."""
+    def lin(dbm):
+        return 10.0 ** (dbm / 10.0)
+
+    px = lin(a.pnoise_dbm) + lin(a.pk_dbm)
+    assert abs(lin(a.pnoise_dbm) - lin(b.pnoise_dbm)) <= 1e-6 * px
+
+
+@pytest.mark.parametrize("transfer", ["f16", "auto", "f32"])
+def test_device_pack_on_card_matches_host_pack(cuda, transfer):
+    """A card bank over four seconds through the device pack and, the same
+    bank, through the host pack (``_pack_host`` called in its place): the
+    same log, states and reports but ``pnoise_dbm`` (``_noise_close``),
+    one pack launch a second, and each upload span says which pack ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amaranth_twstft_tpu_torch.ops import pack as tpack
+    from amaranth_twstft_tpu_torch.utils import profiling
+
+    cfg, chans, secs = _two_prn_seconds(np.complex128)
+    out = []
+    for device_pack in (True, False):
+        rx = tt.BankedReceiver(chans, fs=cfg.fs, transfer=transfer, device=cuda)
+        assert rx._device_pack
+        if not device_pack:
+            rx._pack_second = rx._pack_host
+        before, n0 = tpack.pack_rows.launches, len(profiling.spans())
+        with profile(activities=[ProfilerActivity.CPU]):
+            reps = list(rx.run_stream(iter(secs)))
+        assert tpack.pack_rows.launches - before == (len(secs) if device_pack else 0)
+        ups = [r for r in profiling.spans()[n0:] if r.name == "bank.upload"]
+        assert [u.counts["device_pack"] for u in ups] == [int(device_pack)] * len(secs)
+        assert [u.counts["rows"] for u in ups] == [1 if device_pack else 2] * len(secs)
+        out.append((reps, rx.log, [dataclasses.asdict(s) for s in rx.states]))
+    (rep_d, log_d, st_d), (rep_h, log_h, st_h) = out
+    assert log_d == log_h and st_d == st_h
+    assert all(r is not None and r.locked for r in rep_d[3])
+    for sec_d, sec_h in zip(rep_d, rep_h, strict=True):
+        for a, b in zip(sec_h, sec_d, strict=True):
+            assert (a is None) == (b is None)
+            if a is not None:
+                _noise_close(a, b)
+                assert dataclasses.replace(a, pnoise_dbm=0.0) == dataclasses.replace(
+                    b, pnoise_dbm=0.0)
+
+
+def test_int8_bank_packs_on_the_host(cuda):
+    """The integer transfers keep the host pack on the card: its upload
+    spans count ``device_pack`` 0 and no pack kernel runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from amaranth_twstft_tpu_torch.ops import pack as tpack
+    from amaranth_twstft_tpu_torch.utils import profiling
+
+    cfg, chans, secs = _two_prn_seconds(np.complex128)
+    rx = tt.BankedReceiver(chans, fs=cfg.fs, transfer="int8", device=cuda)
+    before, n0 = tpack.pack_rows.launches, len(profiling.spans())
+    with profile(activities=[ProfilerActivity.CPU]):
+        list(rx.run_stream(iter(secs[:2])))
+    assert tpack.pack_rows.launches == before
+    ups = [r for r in profiling.spans()[n0:] if r.name == "bank.upload"]
+    assert [u.counts["device_pack"] for u in ups] == [0, 0]
+
+
+def test_auto_device_pack_ships_f32_above_the_f16_range(cuda):
+    """``transfer="auto"`` on the card reads the kernel's peak back: a
+    second whose peak reaches 6e4 runs on the uploaded float32 rows, as the
+    host pack's would, with the same reports."""
+    cfg, chans, secs = _two_prn_seconds(np.complex128)
+    for s in secs:
+        s["A"] = s["A"].copy()
+        s["A"][100_000 + 1999] = 6.5e4  # the buffer's last sample (fs + nobs - 1)
+    out = []
+    for device_pack in (True, False):
+        rx = tt.BankedReceiver(chans, fs=cfg.fs, transfer="auto", device=cuda)
+        if not device_pack:
+            rx._pack_second = rx._pack_host
+        assert rx.upload_second(secs[0]).dev.dtype == torch.float32
+        reps = list(rx.run_stream(iter(secs)))
+        out.append((reps, rx.log))
+    assert out[0][1] == out[1][1]
+    for sec_d, sec_h in zip(out[0][0], out[1][0], strict=True):
+        for a, b in zip(sec_h, sec_d, strict=True):
+            assert (a is None) == (b is None)
+            if a is not None:
+                _noise_close(a, b)
+                assert dataclasses.replace(a, pnoise_dbm=0.0) == dataclasses.replace(
+                    b, pnoise_dbm=0.0)
+
+
 # ------------------------------------------------------------- multi-GPU
 @pytest.fixture
 def nccl_mesh(cuda):

@@ -261,7 +261,8 @@ def test_each_second_has_one_of_each_bank_span(capture, small_cfg, tmp_path):
 @pytest.mark.parametrize("sic, used", [(False, 0.5), (True, 1.0)])
 def test_upload_counts_bytes_and_rows(capture, small_cfg, tmp_path, sic, used):
     """``bytes`` is the packed array's size; ``rows_used`` / ``rows`` is a
-    half with no SIC channel (the SIC rows ship unread) and 1 with one."""
+    half with no SIC channel (the SIC rows ship unread) and 1 with one;
+    the CPU packs on the host (``device_pack`` 0)."""
     n0 = len(profiling.spans())
     with _recording():
         *_, rx = _run(capture, small_cfg, tmp_path / "on", sic=sic)
@@ -271,7 +272,8 @@ def test_upload_counts_bytes_and_rows(capture, small_cfg, tmp_path, sic, used):
     S = int(small_cfg.fs) + small_cfg.samples_per_code  # fs + nobs
     assert packed.shape == (2, S, 2) and packed.dtype == np.float16
     for u in ups:
-        assert u.counts == {"bytes": packed.nbytes, "rows": 2, "rows_used": int(2 * used)}
+        assert u.counts == {"bytes": packed.nbytes, "rows": 2, "rows_used": int(2 * used),
+                            "device_pack": 0}
         assert u.counts["rows_used"] / u.counts["rows"] == used
 
 

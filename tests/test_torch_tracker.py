@@ -259,6 +259,27 @@ def test_run_stream_matches_jax(small_cfg, two_prn_stream, transfer, real):
     assert all(r is not None and r.locked for r in rep_t[3])
 
 
+def test_whole_cycles_of_carrier_phase_move_no_report(small_cfg, two_prn_stream):
+    """The unwrapped carrier phase a channel carries grows by its residual
+    Doppler every second; the step takes it less its whole cycles, so a
+    state 40 cycles on gives the same reports bit for bit (its float32
+    phase fit keeps its resolution) and carries its 40 cycles on exactly."""
+    secs = _seconds(two_prn_stream, small_cfg, 4)
+    rxs = [tt.BankedReceiver(chans_for(td), fs=small_cfg.fs, device="cpu")
+           for _ in range(2)]
+    for rx in rxs:
+        for s in secs[:3]:
+            rx.process_second(s)
+        assert all(st.is_trk and not st.is_first for st in rx.states)
+    for st in rxs[1].states:
+        st.last_phi += 40.0
+    reps = [rx.process_second(secs[3]) for rx in rxs]
+    assert all(r is not None for r in reps[0]) and reps[0] == reps[1]
+    for a, b in zip(*(rx.states for rx in rxs)):
+        assert b.last_phi - a.last_phi == 40.0
+        assert dataclasses.replace(b, last_phi=a.last_phi) == a
+
+
 @pytest.mark.parametrize("frac", [0.3, 0.45])
 def test_fractional_delay_matches_jax(small_cfg, frac):
     """A fractional code delay at 2 samples per chip: the port reports the
