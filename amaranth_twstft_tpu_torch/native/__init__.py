@@ -7,6 +7,9 @@ the same public functions:
 - :func:`ingest_epochs` / :func:`ingest_decimated` / :func:`write_sc16` —
   mmap + threaded sc16 ingest producing the float32 (..., 2) boundary
   layout directly,
+- :func:`ingest_into` — the same threaded ingest into the caller's
+  float32 arrays (the float32 views of ``utils/io.read_sc16_epochs``'
+  complex64 rows),
 - :func:`quantize_q8` / :func:`read_raw16` — the threaded int8 quantizer
   and the raw int16 frame copy behind ``utils/io``'s int8 and raw16
   readers and claudio's raw-block reads; both write into the caller's
@@ -46,6 +49,7 @@ __all__ = [
     "file_mtime",
     "ingest_epochs",
     "ingest_decimated",
+    "ingest_into",
     "quantize_q8",
     "read_raw16",
     "write_sc16",
@@ -129,6 +133,7 @@ def load() -> ctypes.CDLL:
         lib.twstft_ingest_file.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
             ctypes.POINTER(ctypes.POINTER(ctypes.c_float)), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int),
         ]
         lib.twstft_ingest_decimated.restype = ctypes.c_int64
         lib.twstft_ingest_decimated.argtypes = [
@@ -230,7 +235,7 @@ def ingest_epochs(
     want = n_epochs * samples_per_epoch
     bufs = [np.empty(2 * want, dtype=np.float32) for _ in range(channels)]
     n = int(lib.twstft_ingest_file(path.encode(), channels, start_sample, want,
-                                   _chan_ptrs(bufs), n_threads))
+                                   _chan_ptrs(bufs), n_threads, None))
     if n < 0:
         raise OSError(f"ingest failed: {path}")
     n_full = n // samples_per_epoch
@@ -239,6 +244,40 @@ def ingest_epochs(
         for b in bufs
     ])
     return out, n_full
+
+
+def ingest_into(path: str, start_frame: int, n_frames: int, outs,
+                n_threads: int = 0) -> int:
+    """Deinterleave frames ``[start_frame, start_frame + n_frames)`` of a
+    ``len(outs)``-channel sc16 file straight into the caller's arrays:
+    ``outs[c]``, writable C-contiguous float32 of at least ``2 *
+    n_frames`` floats, gets channel c's (re, im) pairs, the layout of a
+    complex64 row's float32 view.  One mmap and one pass on up to
+    ``n_threads`` threads (0: up to 8, one a core; one below 2^16 frames).
+    Returns the threads the pass ran on.  A file that cannot be read, or
+    that holds fewer frames, raises OSError."""
+    if start_frame < 0 or n_frames < 0:
+        raise ValueError(f"frames [{start_frame}, +{n_frames}) out of range")
+    if not outs:
+        raise ValueError("outs must hold one array a channel")
+    for a in outs:
+        if (not isinstance(a, np.ndarray) or a.dtype != np.float32
+                or not a.flags.c_contiguous or not a.flags.writeable
+                or a.size < 2 * n_frames):
+            raise ValueError(
+                "each out must be a writable C-contiguous float32 array of at "
+                f"least {2 * n_frames} floats, got {getattr(a, 'dtype', type(a))} "
+                f"{getattr(a, 'shape', '')}")
+    used = ctypes.c_int(0)
+    got = int(load().twstft_ingest_file(
+        os.fsencode(path), len(outs), start_frame, n_frames, _chan_ptrs(outs),
+        _n_threads(n_threads), ctypes.byref(used)))
+    if got < 0:
+        raise OSError(f"ingest failed: {path}")
+    if got != n_frames:
+        raise OSError(f"{path}: {got} of {n_frames} frames read (the file "
+                      "shrank during the read)")
+    return used.value
 
 
 def ingest_decimated(path: str, decim: int, channels: int = 2):

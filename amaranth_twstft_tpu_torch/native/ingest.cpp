@@ -99,12 +99,13 @@ double twstft_file_mtime(const char *path) {
     return (double)st.st_mtime + (double)st.st_mtim.tv_nsec * 1e-9;
 }
 
-// In-memory deinterleave (buffer already loaded).
+// In-memory deinterleave (buffer already loaded).  Returns the threads
+// it ran on.
 int twstft_deinterleave(const int16_t *in, int64_t n_frames, int nch,
                         float **outs, int n_threads) {
     if (n_threads <= 1 || n_frames < (1 << 16)) {
         deinterleave_range(in, 0, n_frames, nch, outs);
-        return 0;
+        return 1;
     }
     std::vector<std::thread> ts;
     int64_t per = (n_frames + n_threads - 1) / n_threads;
@@ -117,14 +118,18 @@ int twstft_deinterleave(const int16_t *in, int64_t n_frames, int nch,
     }
     for (auto &t : ts)
         t.join();
-    return 0;
+    return (int)ts.size();
 }
 
 // mmap + threaded deinterleave of [start_frame, start_frame + n_frames).
 // outs[c] must hold 2*n_frames floats.  Returns frames read (may be short
-// at EOF, like the reference's fread loops) or -1 on error.
+// at EOF, like the reference's fread loops) or -1 on error; *threads_used,
+// where given, gets the threads the deinterleave ran on (0: none ran).
 int64_t twstft_ingest_file(const char *path, int nch, int64_t start_frame,
-                           int64_t n_frames, float **outs, int n_threads) {
+                           int64_t n_frames, float **outs, int n_threads,
+                           int *threads_used) {
+    if (threads_used)
+        *threads_used = 0;
     Mapped m;
     if (!map_file(path, m))
         return -1;
@@ -133,9 +138,12 @@ int64_t twstft_ingest_file(const char *path, int nch, int64_t start_frame,
     if (avail < 0)
         avail = 0;
     int64_t n = n_frames < avail ? n_frames : avail;
-    if (n > 0)
-        twstft_deinterleave(m.data + start_frame * 2 * nch, n, nch, outs,
-                            n_threads);
+    if (n > 0) {
+        int used = twstft_deinterleave(m.data + start_frame * 2 * nch, n, nch,
+                                       outs, n_threads);
+        if (threads_used)
+            *threads_used = used;
+    }
     unmap_file(m);
     return n;
 }

@@ -16,7 +16,9 @@ write straight into ``out``: ``read_sc16_epochs_q8`` calls its threaded
 quantizer unless ``TWSTFT_Q8_NATIVE=0`` selects the plain chunked torch
 quantizer (bit for bit the same), and ``TWSTFT_Q8_POW2=1`` switches both
 to the power-of-2 scale; ``read_sc16_epochs_raw16`` and ``read_raw16``
-are the native raw int16 copy.
+are the native raw int16 copy.  ``read_sc16_epochs`` reads through it
+too: one threaded pass from the memory map writes a complex64 output's
+float32 view.
 """
 
 from __future__ import annotations
@@ -89,21 +91,25 @@ def read_sc16_epochs(
     dtype=np.complex64,
 ):
     """Read ``n_epochs`` contiguous epochs -> (channels, n_epochs, L)
-    complex; short tails are dropped.  Returns (array, n_read)."""
-    mm = open_sc16(path, channels)
-    n = _n_epochs(mm.shape[0], start_sample, n_epochs, samples_per_epoch)
+    complex; short tails are dropped.  Returns (array, n_read).
+
+    One threaded native pass from the memory map fills a complex64
+    array's float32 view (``native.ingest_into``); another ``dtype`` is
+    cast from it.  Each part is ``(float)int16``, exact in any complex
+    dtype."""
+    n = _n_epochs(n_samples_sc16(path, channels), start_sample, n_epochs,
+                  samples_per_epoch)
     if n == 0:
         return np.zeros((channels, 0, samples_per_epoch), dtype=dtype), 0
-    with span("io.read_sc16.to_f32"):
-        raw = np.asarray(
-            mm[start_sample : start_sample + n * samples_per_epoch]
-        ).astype(np.float32)
+    n_frames = n * samples_per_epoch
     with span("io.read_sc16.to_complex"):
-        out = np.empty((channels, n, samples_per_epoch), dtype=dtype)
-        for c in range(channels):
-            z = raw[:, 2 * c] + 1j * raw[:, 2 * c + 1]
-            out[c] = z.reshape(n, samples_per_epoch)
-    return out, n
+        out = np.empty((channels, n, samples_per_epoch), dtype=np.complex64)
+        ri = [out[c].reshape(-1).view(np.float32) for c in range(channels)]
+    with span("io.read_sc16.to_f32", frames=n_frames) as sp:
+        threads = native.ingest_into(path, start_sample, n_frames, ri)
+        if sp is not None:
+            sp.counts["threads"] = threads
+    return out.astype(dtype, copy=False), n
 
 
 def read_sc16_epochs_ri(

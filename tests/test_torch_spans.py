@@ -21,6 +21,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from amaranth_twstft_tpu_torch import native
 from amaranth_twstft_tpu_torch.cli import main as torch_main
 from amaranth_twstft_tpu_torch.models import dllpll as td
 from amaranth_twstft_tpu_torch.models import tracker as tt
@@ -246,6 +247,9 @@ def test_each_second_has_one_of_each_bank_span(capture, small_cfg, tmp_path):
                                                  "bank.process"))
         for n in ("io.read_sc16.to_f32", "io.read_sc16.to_complex"):
             assert by_id[one[n].parent] is pull
+        frames = int(small_cfg.fs) + 2 * small_cfg.samples_per_code
+        assert one["io.read_sc16.to_f32"].counts == {"frames": frames,
+                                                     "threads": _pass_threads(capture, frames)}
         assert by_id[pack.parent] is up and up.parent is None and proc.parent is None
         for n in ("bank.pack.fill", "bank.pack.stats", "bank.pack.cast"):
             assert by_id[one[n].parent] is pack
@@ -256,6 +260,30 @@ def test_each_second_has_one_of_each_bank_span(capture, small_cfg, tmp_path):
                 assert by_id[one[n].parent] is proc
     acq = next(r for r in rec if r.name == "bank.acquire")
     assert acq.second == 0 and acq.counts == {}
+
+
+def _pass_threads(path, frames):
+    """The threads ``native.ingest_into`` reports for a two-input read of
+    ``frames`` frames."""
+    return native.ingest_into(path, 0, frames, [np.empty(2 * frames, np.float32) for _ in range(2)])
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_read_counts_its_native_pass(capture, small_cfg, dtype):
+    """Any complex dtype is read by the native pass, and the read's
+    ``to_f32`` span counts its frames and the threads it ran on."""
+    fs, L = int(small_cfg.fs), small_cfg.samples_per_code
+    frames = fs + 2 * L
+    n0 = len(profiling.spans())
+    with _recording():
+        with span("bank.pull", second=7) as pull:
+            d, n = io.read_sc16_epochs(capture, fs, 1, frames, channels=2, dtype=dtype)
+    assert n == 1 and d.dtype == dtype
+    one = {r.name: r for r in _since(n0)}
+    f32, cplx = one["io.read_sc16.to_f32"], one["io.read_sc16.to_complex"]
+    assert f32.parent == cplx.parent == pull.id and f32.second == cplx.second == 7
+    assert f32.counts == {"frames": frames, "threads": _pass_threads(capture, frames)}
+    assert cplx.counts == {}
 
 
 @pytest.mark.parametrize("sic, used", [(False, 0.5), (True, 1.0)])
