@@ -24,9 +24,10 @@ the same public functions:
 ``g++`` builds ``libtwstft_native.so`` into the git-ignored
 ``amaranth_twstft_tpu_torch/build/`` at first use, and again when a
 source is newer (:func:`build` does it ahead of time).  There is no
-fallback: a failed build raises with the compiler's output.  The plain
-versions live with their callers (``utils/io``'s chunked torch quantizer
-behind ``TWSTFT_Q8_NATIVE=0``, ``ops/lfsr._is_mseq_py`` and
+fallback: a failed build raises with the compiler's output.  Every read
+of sc16 sample bytes in the port is one call into this library; the
+plain versions are private references the tests hold it to
+(``utils/io._quantize_q8_plain``, ``ops/lfsr._is_mseq_py`` and
 ``_find_mseq_taps_np``).
 """
 
@@ -137,7 +138,7 @@ def load() -> ctypes.CDLL:
         ]
         lib.twstft_ingest_decimated.restype = ctypes.c_int64
         lib.twstft_ingest_decimated.argtypes = [
-            ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
             ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
         ]
         lib.twstft_quantize_q8.restype = ctypes.c_int64
@@ -229,21 +230,15 @@ def ingest_epochs(
     channels: int = 2,
     n_threads: int = 4,
 ):
-    """Read epochs as float32 (channels, n, L, 2) through an mmap and a
-    threaded deinterleave.  Returns (array, n_read)."""
-    lib = load()
-    want = n_epochs * samples_per_epoch
-    bufs = [np.empty(2 * want, dtype=np.float32) for _ in range(channels)]
-    n = int(lib.twstft_ingest_file(path.encode(), channels, start_sample, want,
-                                   _chan_ptrs(bufs), n_threads, None))
-    if n < 0:
-        raise OSError(f"ingest failed: {path}")
-    n_full = n // samples_per_epoch
-    out = np.stack([
-        b[: 2 * n_full * samples_per_epoch].reshape(n_full, samples_per_epoch, 2)
-        for b in bufs
-    ])
-    return out, n_full
+    """Read the whole epochs from ``start_sample`` as float32 (channels,
+    n, L, 2) through an mmap and a threaded deinterleave
+    (:func:`ingest_into`, one row a channel).  Returns (array, n_read)."""
+    L = samples_per_epoch
+    n = min(n_epochs, max(0, (file_frames(path, channels) - start_sample) // L))
+    out = np.empty((channels, n, L, 2), dtype=np.float32)
+    ingest_into(path, start_sample, n * L,
+                [out[c].reshape(-1) for c in range(channels)], n_threads)
+    return out, n
 
 
 def ingest_into(path: str, start_frame: int, n_frames: int, outs,
@@ -280,17 +275,20 @@ def ingest_into(path: str, start_frame: int, n_frames: int, outs,
     return used.value
 
 
-def ingest_decimated(path: str, decim: int, channels: int = 2):
-    """Every decim-th sample as float32 (channels, m, 2)."""
-    lib = load()
-    total = file_frames(path, channels)
-    m = (total + decim - 1) // decim
-    bufs = [np.empty(2 * m, dtype=np.float32) for _ in range(channels)]
-    n = int(lib.twstft_ingest_decimated(path.encode(), channels, decim,
-                                        _chan_ptrs(bufs)))
-    if n < 0:
+def ingest_decimated(path: str, decim: int, channels: int = 2,
+                     max_out: int | None = None):
+    """Every decim-th sample as float32 (channels, m, 2).  ``max_out``
+    caps m and reads only that prefix of the file; an empty or sub-frame
+    file gives m = 0."""
+    m = max(0, (file_frames(path, channels) + decim - 1) // decim)
+    if max_out is not None:
+        m = min(m, max_out)
+    out = np.empty((channels, m, 2), dtype=np.float32)
+    n = int(load().twstft_ingest_decimated(os.fsencode(path), channels, decim,
+                                           m, _chan_ptrs(list(out))))
+    if n != m:
         raise OSError(f"decimated ingest failed: {path}")
-    return np.stack([b[: 2 * n].reshape(n, 2) for b in bufs])
+    return out
 
 
 def quantize_q8(

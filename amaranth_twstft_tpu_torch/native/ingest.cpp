@@ -149,14 +149,18 @@ int64_t twstft_ingest_file(const char *path, int nch, int64_t start_frame,
 }
 
 // Strided read of every decim-th frame (the df pre-pass,
-// main.cpp:371-395).  outs[c] must hold 2*ceil(frames/decim) floats.
+// main.cpp:371-395), at most max_out of them, so a capped read touches
+// only the file's prefix.  outs[c] must hold 2*max_out floats.  Returns
+// min(ceil(frames/decim), max_out) or -1.
 int64_t twstft_ingest_decimated(const char *path, int nch, int decim,
-                                float **outs) {
+                                int64_t max_out, float **outs) {
     Mapped m;
     if (!map_file(path, m))
         return -1;
     int64_t total = (int64_t)(m.bytes / (4 * (size_t)nch));
     int64_t out_n = (total + decim - 1) / decim;
+    if (out_n > max_out)
+        out_n = max_out;
     const int stride = 2 * nch;
     for (int64_t i = 0; i < out_n; ++i) {
         const int16_t *frame = m.data + (i * (int64_t)decim) * stride;

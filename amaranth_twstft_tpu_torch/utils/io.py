@@ -4,21 +4,16 @@ The port's copy of the JAX package's ``utils/io.py`` readers.  The format
 is the reference's interleaved 16-bit IQ (``acquisition/
 rx_multi_samples.cpp:155``); the dual-channel layout has int16 frames
 ``[I1 Q1 I2 Q2]`` (``godual_ranging.m:76-80``, ``processing/CPP/
-main.cpp:475-483``).  Reads are memmap-based, so a long capture never
-materializes on the host.
+main.cpp:475-483``).
 
-The batch readers of the GoRanging pipeline take an optional ``out``
-array (for example a NumPy view of a pinned host buffer) and fill its
-first ``n`` epochs instead of allocating; the values are the same either
-way.  The int8 and raw16 readers go through the port's native library
-(:mod:`amaranth_twstft_tpu_torch.native`), as the JAX package's do, and
-write straight into ``out``: ``read_sc16_epochs_q8`` calls its threaded
-quantizer unless ``TWSTFT_Q8_NATIVE=0`` selects the plain chunked torch
-quantizer (bit for bit the same), and ``TWSTFT_Q8_POW2=1`` switches both
-to the power-of-2 scale; ``read_sc16_epochs_raw16`` and ``read_raw16``
-are the native raw int16 copy.  ``read_sc16_epochs`` reads through it
-too: one threaded pass from the memory map writes a complex64 output's
-float32 view.
+Every read of sample bytes is one call into the port's native library
+(:mod:`amaranth_twstft_tpu_torch.native`), which maps the file, so a
+long capture never materializes on the host; this module only sizes,
+shapes and casts the arrays.  The batch readers of the GoRanging
+pipeline take an optional ``out`` array (for example a NumPy view of a
+pinned host buffer) and fill its first ``n`` epochs instead of
+allocating; the values are the same either way.  ``open_sc16`` memmaps
+a file for callers outside the readers.
 """
 
 from __future__ import annotations
@@ -48,9 +43,6 @@ __all__ = [
     "move_to_done",
 ]
 
-_TORCH_FLOAT = {np.dtype(np.float16): torch.float16,
-                np.dtype(np.float32): torch.float32}
-
 
 def open_sc16(path: str, channels: int = 2) -> np.ndarray:
     """Memmap an sc16 file as an int16 array of shape (n, 2*channels);
@@ -66,15 +58,17 @@ def n_samples_sc16(path: str, channels: int = 2) -> int:
     return os.path.getsize(path) // (4 * channels)
 
 
-def _n_epochs(total: int, start_sample: int, n_epochs: int, L: int) -> int:
+def _n_epochs(path: str, channels: int, start_sample: int, n_epochs: int,
+              L: int) -> int:
+    total = n_samples_sc16(path, channels)
     return min(n_epochs, max(0, (total - start_sample) // L))
 
 
 def _account(timers: dict | None, disk_s: float, convert_s: float,
              nbytes: int) -> None:
-    """Accumulate the pipeline's per-stage attribution (``disk_s``:
-    memmap page-in + copy, ``convert_s``: int16 -> transfer format,
-    ``bytes_read``)."""
+    """Accumulate the pipeline's per-stage attribution (``disk_s``: the
+    native read, ``convert_s``: the cast to the transfer format,
+    ``bytes_read``: the sc16 bytes read)."""
     if timers is None:
         return
     timers["disk_s"] = timers.get("disk_s", 0.0) + disk_s
@@ -97,8 +91,7 @@ def read_sc16_epochs(
     array's float32 view (``native.ingest_into``); another ``dtype`` is
     cast from it.  Each part is ``(float)int16``, exact in any complex
     dtype."""
-    n = _n_epochs(n_samples_sc16(path, channels), start_sample, n_epochs,
-                  samples_per_epoch)
+    n = _n_epochs(path, channels, start_sample, n_epochs, samples_per_epoch)
     if n == 0:
         return np.zeros((channels, 0, samples_per_epoch), dtype=dtype), 0
     n_frames = n * samples_per_epoch
@@ -125,24 +118,30 @@ def read_sc16_epochs_ri(
 ):
     """Epochs as re/im pairs: (channels, n, L, 2) float, or (1, n, L, 2)
     of channel ``select`` only.  Returns (array, n_read); with ``out``
-    (shape (n_out, >= n, L, 2)) the array is ``out[:, :n]``."""
-    mm = open_sc16(path, channels)
-    n = _n_epochs(mm.shape[0], start_sample, n_epochs, samples_per_epoch)
+    (C-contiguous, shape (n_out, >= n, L, 2)) the array is ``out[:, :n]``.
+
+    All channels: one threaded native pass (``native.ingest_into``)
+    fills float32 rows, ``out``'s own or an array cast once.  One
+    channel: the native int16 copy and one cast (:func:`_read_cast`)."""
+    L = samples_per_epoch
+    n = _n_epochs(path, channels, start_sample, n_epochs, L)
     n_out = 1 if select is not None else channels
     if n == 0:
-        return np.zeros((n_out, 0, samples_per_epoch, 2), dtype), 0
-    t0 = time.perf_counter()
-    sl = mm[start_sample : start_sample + n * samples_per_epoch]
-    if select is not None:
-        sl = sl[:, 2 * select : 2 * select + 2]
-    raw = np.asarray(sl)
-    t1 = time.perf_counter()
-    conv = raw.astype(dtype)
+        return np.zeros((n_out, 0, L, 2), dtype), 0
     if out is None:
-        out = np.empty((n_out, n, samples_per_epoch, 2), dtype=dtype)
-    for c in range(n_out):
-        out[c, :n] = conv[:, 2 * c : 2 * c + 2].reshape(n, samples_per_epoch, 2)
-    _account(timers, t1 - t0, time.perf_counter() - t1, raw.nbytes)
+        out = np.empty((n_out, n, L, 2), dtype=dtype)
+    if select is not None:
+        _read_cast(path, start_sample, n * L, channels, select,
+                   _flat_out(out[0], n, L, 2), timers)
+        return out[:, :n], n
+    f32 = out if out.dtype == np.float32 else np.empty((n_out, n, L, 2), np.float32)
+    t0 = time.perf_counter()
+    native.ingest_into(path, start_sample, n * L,
+                       [_flat_out(f32[c], n, L, 2) for c in range(n_out)])
+    t1 = time.perf_counter()
+    if f32 is not out:
+        out[:, :n] = f32
+    _account(timers, t1 - t0, time.perf_counter() - t1, 4 * channels * n * L)
     return out[:, :n], n
 
 
@@ -158,25 +157,38 @@ def read_sc16_epochs_packed(
 ):
     """Epochs in the file's interleaved order: (n, L, 2*channels) float.
 
-    One contiguous int16 -> float conversion (torch on the host), zero
-    strided copies; the ranging step deinterleaves
-    (:func:`amaranth_twstft_tpu_torch.ops.boundary.ranging_step`)."""
-    mm = open_sc16(path, channels)
-    n = _n_epochs(mm.shape[0], start_sample, n_epochs, samples_per_epoch)
+    The native int16 copy and one contiguous torch cast
+    (:func:`_read_cast`), zero strided copies; the ranging step
+    deinterleaves (:func:`amaranth_twstft_tpu_torch.ops.boundary.ranging_step`)."""
+    L = samples_per_epoch
+    n = _n_epochs(path, channels, start_sample, n_epochs, L)
     width = 2 * channels
     if n == 0:
-        return np.zeros((0, samples_per_epoch, width), dtype), 0
-    t0 = time.perf_counter()
-    raw = np.array(mm[start_sample : start_sample + n * samples_per_epoch])
-    t1 = time.perf_counter()
+        return np.zeros((0, L, width), dtype), 0
     if out is None:
-        out = np.empty((n, samples_per_epoch, width), dtype=dtype)
-    dst = torch.from_numpy(out[:n].reshape(n * samples_per_epoch, width))
-    if dst.dtype != _TORCH_FLOAT[np.dtype(dtype)]:
+        out = np.empty((n, L, width), dtype=dtype)
+    if out.dtype != np.dtype(dtype):
         raise ValueError(f"out is {out.dtype}, the reader was asked for {dtype}")
-    dst.copy_(torch.from_numpy(raw))
-    _account(timers, t1 - t0, time.perf_counter() - t1, raw.nbytes)
+    _read_cast(path, start_sample, n * L, channels, None,
+               _flat_out(out, n, L, width), timers)
     return out[:n], n
+
+
+def _read_cast(path: str, start_frame: int, n_frames: int, channels: int,
+               select: int | None, dst: np.ndarray, timers: dict | None) -> None:
+    """Frames ``[start_frame, start_frame + n_frames)``, every channel's
+    columns or channel ``select``'s, into the float (n_frames, width)
+    ``dst``: the native int16 copy (``disk_s``), then one torch cast
+    (``convert_s``)."""
+    t0 = time.perf_counter()
+    raw, got = native.read_raw16(path, start_frame, n_frames, channels=channels,
+                                 select=-1 if select is None else select)
+    if got != n_frames:
+        raise OSError(f"{path}: {got} of {n_frames} frames read (the file "
+                      "shrank during the read)")
+    t1 = time.perf_counter()
+    torch.from_numpy(dst).copy_(torch.from_numpy(raw))
+    _account(timers, t1 - t0, time.perf_counter() - t1, raw.nbytes)
 
 
 def _flat_out(out: np.ndarray, n: int, L: int, width: int) -> np.ndarray:
@@ -243,42 +255,30 @@ def read_sc16_epochs_q8(
     scale with an integer rounding shift instead.  The native threaded
     quantizer does page-in, min/max and quantize in one call and books
     it under ``convert_s`` and ``native_q8_s`` (adding nothing to
-    ``disk_s``); ``TWSTFT_Q8_NATIVE=0`` runs the plain chunked torch
-    quantizer, bit for bit the same, with ``disk_s``/``convert_s`` split.
-    Returns (q, n_read, scale)."""
-    mm = open_sc16(path, channels)
-    n = _n_epochs(mm.shape[0], start_sample, n_epochs, samples_per_epoch)
+    ``disk_s``), bit for bit :func:`_quantize_q8_plain`.  Returns (q,
+    n_read, scale)."""
+    L = samples_per_epoch
+    n = _n_epochs(path, channels, start_sample, n_epochs, L)
     width = 2 if select is not None else 2 * channels
     if n == 0:
-        return np.zeros((0, samples_per_epoch, width), np.int8), 0, 1.0
+        return np.zeros((0, L, width), np.int8), 0, 1.0
     if out is None:
-        out = np.empty((n, samples_per_epoch, width), np.int8)
-    flat = _flat_out(out, n, samples_per_epoch, width)
-    pow2 = os.environ.get("TWSTFT_Q8_POW2") == "1"
-    n_frames = n * samples_per_epoch
-    if os.environ.get("TWSTFT_Q8_NATIVE", "1") != "0":
-        t0 = time.perf_counter()
-        _, got, scale = native.quantize_q8(
-            path, start_sample, n_frames, channels=channels,
-            select=-1 if select is None else select, pow2=pow2, out=flat)
-        if got != n_frames:
-            raise OSError(f"{path}: {got} of {n_frames} frames read (the "
-                          "file shrank during the read)")
-        if timers is not None:
-            # one call spans page-in and quantize: no disk_s split
-            dt = time.perf_counter() - t0
-            for k in ("convert_s", "native_q8_s"):
-                timers[k] = timers.get(k, 0.0) + dt
-            timers["bytes_read"] = timers.get("bytes_read", 0) + 2 * flat.size
-        return out[:n], n, scale
+        out = np.empty((n, L, width), np.int8)
+    flat = _flat_out(out, n, L, width)
     t0 = time.perf_counter()
-    sl = mm[start_sample : start_sample + n_frames]
-    if select is not None:
-        sl = sl[:, 2 * select : 2 * select + 2]
-    raw = np.array(sl)  # a writable copy out of the read-only memmap
-    t1 = time.perf_counter()
-    scale = _quantize_q8_plain(raw, pow2, flat)
-    _account(timers, t1 - t0, time.perf_counter() - t1, raw.nbytes)
+    _, got, scale = native.quantize_q8(
+        path, start_sample, n * L, channels=channels,
+        select=-1 if select is None else select,
+        pow2=os.environ.get("TWSTFT_Q8_POW2") == "1", out=flat)
+    if got != n * L:
+        raise OSError(f"{path}: {got} of {n * L} frames read (the file "
+                      "shrank during the read)")
+    if timers is not None:
+        # one call spans page-in and quantize: no disk_s split
+        dt = time.perf_counter() - t0
+        for k in ("convert_s", "native_q8_s"):
+            timers[k] = timers.get(k, 0.0) + dt
+        timers["bytes_read"] = timers.get("bytes_read", 0) + 2 * flat.size
     return out[:n], n, scale
 
 
@@ -297,8 +297,7 @@ def read_sc16_epochs_raw16(
     native copy out of the mmap and no conversion; the ranging step
     casts to float32, which is exact for every int16.  Returns (a,
     n_read)."""
-    total = n_samples_sc16(path, channels)
-    n = _n_epochs(total, start_sample, n_epochs, samples_per_epoch)
+    n = _n_epochs(path, channels, start_sample, n_epochs, samples_per_epoch)
     width = 2 if select is not None else 2 * channels
     if n == 0:
         return np.zeros((0, samples_per_epoch, width), np.int16), 0
@@ -341,14 +340,11 @@ def decimate_sc16(
     """Every ``decim``-th complex sample of each channel -> (channels, m)
     (``processing/CPP/main.cpp:371-395``).  ``max_out`` caps the output
     at the first ``max_out`` decimated samples and reads only that
-    prefix of the file."""
-    mm = open_sc16(path, channels)
-    stop = None if max_out is None else max_out * decim
-    sub = np.asarray(mm[:stop:decim]).astype(np.float32)
-    out = np.empty((channels, sub.shape[0]), dtype=dtype)
-    for c in range(channels):
-        out[c] = sub[:, 2 * c] + 1j * sub[:, 2 * c + 1]
-    return out
+    prefix of the file.  The native strided pass
+    (``native.ingest_decimated``) writes float32 (re, im) pairs, viewed
+    as complex64 and cast only for another ``dtype``."""
+    ri = native.ingest_decimated(path, decim, channels=channels, max_out=max_out)
+    return ri.view(np.complex64)[..., 0].astype(dtype, copy=False)
 
 
 def write_sc16(path: str, *channels_iq: np.ndarray) -> None:

@@ -145,11 +145,10 @@ N1. builds ``native/*.cpp`` with ``g++`` ahead of every timed phase
     plain torch quantizer (bytes and scale equal) and ``native.read_raw16``
     against the memmap copy (bytes equal), and prints each path's MB/s,
     the thread count and ``os.cpu_count()``;
-N2. runs ``goranging --fast --parity-ns 0.1`` (the native int8 reader)
-    and the same under ``TWSTFT_Q8_NATIVE=0``: epochs, df and ``.mat``
-    fields equal bit for bit, each channel's median delay within 0.01
-    sample of the truth; prints both runs' and the int16 runs' reader
-    times and, after the two-way phase, claudio's ``read_s`` (its raw
+N2. runs ``goranging --fast --parity-ns 0.1`` (the native int8 reader,
+    which N1 holds to the plain quantizer): each channel's median delay
+    within 0.01 sample of the truth; prints its and the int16 runs'
+    reader times and, after the two-way phase, claudio's ``read_s`` (its raw
     blocks come through the native library); ``prn --search 120`` at 17
     bits equals the plain NumPy search (both timed);
 M.  holds ``ops/mxufft`` ``fft_factored`` and ``ifft_factored`` at
@@ -2261,41 +2260,23 @@ def native_phase(work: str, cap: str, code: str, truth: dict, dev, gr: dict) -> 
         f"MB/s ({t_raw:.3f} s), memmap copy {rates['memmap_copy_mbps']:.0f} MB/s, over "
         f"{mb:.0f} MB; {threads} threads, os.cpu_count() {os.cpu_count()}")
 
-    # -- N2. goranging --fast --parity-ns 0.1, native and plain quantizer ---
-    runs = {}
-    for env in ("1", "0"):
-        os.environ["TWSTFT_Q8_NATIVE"] = env
-        try:
-            runs[env] = run_goranging_cli(
-                cap, code, os.path.join(work, f"q8native{env}C.mat"), dev,
-                extra=("--parity-ns", "0.1"))
-        finally:
-            os.environ.pop("TWSTFT_Q8_NATIVE")
-    (o_nat, w_nat), (o_plain, w_plain) = runs["1"], runs["0"]
-    if "native_q8_s" not in o_nat["timing"] or "native_q8_s" in o_plain["timing"]:
-        raise RuntimeError("the int8 runs did not take the quantizers asked for")
-    for ch in ("ch1", "ch2"):
-        for k in o_plain[ch]:
-            if not np.array_equal(o_nat[ch][k], o_plain[ch][k]):
-                raise RuntimeError(f"native vs plain int8 run differ ({ch} {k})")
-    if o_nat["df"] != o_plain["df"]:
-        raise RuntimeError("native vs plain int8 run: df differs")
-    n_fields = mat_fields_equal(o_nat["mat_path"], o_plain["mat_path"])
+    # -- N2. goranging --fast --parity-ns 0.1 through the native quantizer ---
+    o_nat, w_nat = run_goranging_cli(cap, code, os.path.join(work, "q8nativeC.mat"),
+                                     dev, extra=("--parity-ns", "0.1"))
+    if "native_q8_s" not in o_nat["timing"]:
+        raise RuntimeError("the int8 run did not take the native quantizer")
     errs = []
     for c, ch in enumerate(("ch1", "ch2")):
         dl = delays_samples(o_nat[ch])
         errs.append(float(np.median(dl) - truth["delay"][c]))
         if len(dl) != gr["n_epochs"] or abs(errs[-1]) > GR_DELAY_TOL:
             raise RuntimeError(f"int8 run: {ch} {len(dl)} epochs, delay err {errs[-1]}")
-    tn, tp, t16 = o_nat["timing"], o_plain["timing"], gr["timing"]
-    log(f"N2 goranging --fast --parity-ns 0.1: native and TWSTFT_Q8_NATIVE=0 runs "
-        f"equal in every epoch field, df and {n_fields} .mat fields; median delay "
-        f"err {errs} sample; wall {w_nat:.3f} s native, {w_plain:.3f} s plain")
-    log(f"  int8 timing native: disk_s {tn['disk_s']}, convert_s {tn['convert_s']}, "
-        f"native_q8_s {tn['native_q8_s']}, epoch_loop_s {tn['epoch_loop_s']}; plain: "
-        f"disk_s {tp['disk_s']}, convert_s {tp['convert_s']}, epoch_loop_s "
-        f"{tp['epoch_loop_s']}; int16 run (native read_raw16): disk_s {t16['disk_s']}, "
-        f"convert_s {t16['convert_s']}, epoch_loop_s {t16['epoch_loop_s']}")
+    tn, t16 = o_nat["timing"], gr["timing"]
+    log(f"N2 goranging --fast --parity-ns 0.1 (native int8 reader): median delay "
+        f"err {errs} sample; wall {w_nat:.3f} s")
+    log(f"  int8 timing: convert_s {tn['convert_s']}, native_q8_s {tn['native_q8_s']}, "
+        f"epoch_loop_s {tn['epoch_loop_s']}; int16 run (native read_raw16): disk_s "
+        f"{t16['disk_s']}, convert_s {t16['convert_s']}, epoch_loop_s {t16['epoch_loop_s']}")
 
     # prn --search at the production 17-bit length, engine vs plain search
     stdout = io.StringIO()
@@ -2313,8 +2294,8 @@ def native_phase(work: str, cap: str, code: str, truth: dict, dev, gr: dict) -> 
         f"{t_search:.3f} s (native engine), plain {t_plain_search:.3f} s")
     return {
         **rates, "threads": threads, "cpu_count": os.cpu_count(), "capture_mb": mb,
-        "q8_native_wall_s": w_nat, "q8_plain_wall_s": w_plain,
-        "q8_delay_err_samples": errs, "q8_timing_native": tn, "q8_timing_plain": tp,
+        "q8_native_wall_s": w_nat, "q8_delay_err_samples": errs,
+        "q8_timing_native": tn,
         "int16_disk_s": t16["disk_s"], "int16_convert_s": t16["convert_s"],
         "prn_search_s": t_search, "prn_search_plain_s": t_plain_search,
     }

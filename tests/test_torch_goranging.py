@@ -129,8 +129,10 @@ def test_prn_files_and_replica_helpers_match(tmp_path):
 def test_readers_byte_identical(files, monkeypatch, native):
     """Every epoch reader of the port returns the JAX package's arrays
     (dtype, shape, bytes, count, scale), with the JAX package's native
-    library on and off, with and without ``out`` buffers, including a
-    short tail and a start past the end."""
+    library on and off (``TWSTFT_Q8_NATIVE`` switches only the JAX
+    reader; the port's always reads through its library), with and
+    without ``out`` buffers, including a short tail and a start past the
+    end."""
     monkeypatch.setenv("TWSTFT_Q8_NATIVE", native)
     cap, L = files["cap"], 2000
     for start, n_ep in ((0, 7), (3 * L + 11, 5), (97 * L, 10), (200 * L, 4)):

@@ -5,9 +5,11 @@ Every native output must equal the JAX package's byte for byte: the
 ingest functions, the int8 quantizer over the full-scale, ``select``,
 ``pow2``, fused-decimation and all-zero cases of ``tests/test_native.py``,
 the raw16 copy, the sc16 and MAT writers and the LFSR engine.  The
-port's readers under ``TWSTFT_Q8_NATIVE=0/1`` x ``TWSTFT_Q8_POW2=0/1``
-must return the JAX readers' arrays and scales, and a failed build must
-raise rather than fall back.
+port's readers, which have no path around the library, must return the
+JAX readers' arrays and scales under the JAX package's
+``TWSTFT_Q8_NATIVE=0/1`` x ``TWSTFT_Q8_POW2=0/1``, the float and
+decimating readers must read no sample through a memmap, and a failed
+build must raise rather than fall back.
 """
 
 import os
@@ -88,15 +90,25 @@ def test_ingest_functions_match_jax(iq_file):
         j, jn = jnative.ingest_epochs(p, start, n_ep, 10_000, channels=2)
         assert tn == jn and t.dtype == j.dtype and t.shape == j.shape
         np.testing.assert_array_equal(t, j)
+        # the plain numpy slice of the file the port's readers used to take
+        frames = np.fromfile(p, np.int16).reshape(-1, 4)[start : start + tn * 10_000]
+        plain = frames.astype(np.float32).reshape(tn, 10_000, 2, 2).transpose(2, 0, 1, 3)
+        np.testing.assert_array_equal(t, plain)
     ref, _ = tio.read_sc16_epochs(p, 100, 3, 10_000, channels=2)
     t, _ = tnative.ingest_epochs(p, 100, 3, 10_000, channels=2)
     np.testing.assert_array_equal(t[..., 0], ref.real)
     np.testing.assert_array_equal(t[..., 1], ref.imag)
-    for decim in (7, 25):
-        t = tnative.ingest_decimated(p, decim, channels=2)
-        np.testing.assert_array_equal(t, jnative.ingest_decimated(p, decim, channels=2))
-        z = tio.decimate_sc16(p, decim, channels=2)
-        np.testing.assert_array_equal(t[..., 0], z.real)
+    frames = np.fromfile(p, np.int16).reshape(-1, 4).astype(np.float32)
+    for decim, max_out in ((7, None), (25, None), (7, 3_000), (25, 10 ** 9), (5, 0)):
+        t = tnative.ingest_decimated(p, decim, channels=2, max_out=max_out)
+        plain = frames[: None if max_out is None else max_out * decim : decim]
+        assert t.shape == (2, len(plain), 2)
+        np.testing.assert_array_equal(t, plain.reshape(-1, 2, 2).transpose(1, 0, 2))
+        if max_out is None:
+            np.testing.assert_array_equal(t, jnative.ingest_decimated(p, decim, channels=2))
+        z = tio.decimate_sc16(p, decim, channels=2, max_out=max_out)
+        assert z.dtype == np.complex64
+        np.testing.assert_array_equal(z, (plain[:, 0::2] + 1j * plain[:, 1::2]).T)
 
 
 def test_write_sc16_matches_jax_byte_for_byte(tmp_path):
@@ -221,9 +233,11 @@ def test_raw16_matches_jax_memmap_and_out(q8_file):
 @pytest.mark.parametrize("pow2_env", ["0", "1"])
 def test_q8_reader_matches_jax_under_both_switches(q8_file, monkeypatch,
                                                    native_env, pow2_env):
-    """``read_sc16_epochs_q8`` of both packages under the same switches:
-    the same arrays and scales (select, ``out``, a short tail, a start
-    past the end), and the JAX package's timing keys."""
+    """``read_sc16_epochs_q8`` of both packages under the JAX package's
+    switches (``TWSTFT_Q8_NATIVE`` chooses only the JAX reader's path; the
+    port always quantizes natively): the same arrays and scales (select,
+    ``out``, a short tail, a start past the end), and the native JAX
+    reader's timing keys."""
     p, raw, L, n = q8_file
     monkeypatch.setenv("TWSTFT_Q8_NATIVE", native_env)
     monkeypatch.setenv("TWSTFT_Q8_POW2", pow2_env)
@@ -235,10 +249,10 @@ def test_q8_reader_matches_jax_under_both_switches(q8_file, monkeypatch,
             assert (tn, ts) == (jn, js) and tq.dtype == jq.dtype and tq.shape == jq.shape
             np.testing.assert_array_equal(tq, jq)
             if tn:
-                assert set(tt) == set(jt)
                 assert tt["bytes_read"] == jt["bytes_read"]
+                assert "disk_s" not in tt and tt["native_q8_s"] == tt["convert_s"]
                 if native_env == "1":
-                    assert "disk_s" not in tt and tt["native_q8_s"] == tt["convert_s"]
+                    assert set(tt) == set(jt)
     out = np.zeros((n + 1, L, 4), np.int8)
     tq, tn, ts = tio.read_sc16_epochs_q8(p, 0, n, L, out=out)
     assert np.shares_memory(tq, out)
@@ -269,6 +283,49 @@ def test_raw16_readers_go_through_the_library(q8_file, monkeypatch):
     assert m == 10
     np.testing.assert_array_equal(a, raw.reshape(-1, 2)[-10:])
     assert calls == [(L + 1, 3 * L), (5, 1000), (2 * n * L - 10, 1000)]
+
+
+def test_float_and_decimated_readers_read_no_memmap(q8_file, tmp_path, monkeypatch):
+    """``decimate_sc16``, ``read_sc16_epochs_ri`` and
+    ``read_sc16_epochs_packed`` return the JAX readers' arrays with
+    ``open_sc16`` and ``np.memmap`` made to raise: every sample comes
+    through the native library."""
+    p, raw, L, n = q8_file
+    p6 = str(tmp_path / "six.bin")
+    open(p6, "wb").write(b"\0" * 6)
+    C128 = np.complex128
+    dec = [((p, 5), {}), ((p, 5), {"max_out": 1000}), ((p, 7), {"dtype": C128}),
+           ((p, 3), {"max_out": 10 ** 9, "dtype": C128}), ((p6, 5), {}), ((p, 1), {"channels": 1})]
+    ri = [((p, s, k, L), {"select": sel, "dtype": dt})
+          for s, k in ((L + 5, 3), ((n - 1) * L + 3, 5), (n * L, 2))
+          for sel in (None, 0, 1) for dt in (np.float32, np.float16)]
+    packed = [((p, s, k, L), {"dtype": dt})
+              for s, k in ((0, n), ((n - 1) * L + 3, 5)) for dt in (np.float32, np.float16)]
+    cases = ([(tio.decimate_sc16, jio.decimate_sc16, a, k) for a, k in dec]
+             + [(tio.read_sc16_epochs_ri, jio.read_sc16_epochs_ri, a, k) for a, k in ri]
+             + [(tio.read_sc16_epochs_packed, jio.read_sc16_epochs_packed, a, k)
+                for a, k in packed])
+    want = [j(*a, **k) for _, j, a, k in cases]
+    want_out = [jio.read_sc16_epochs_ri(p, 2, 4, L, dtype=dt, select=sel)[0]
+                for dt in (np.float32, np.float16) for sel in (None, 1)]
+
+    def no_memmap(*a, **k):
+        raise AssertionError("a reader mapped the file with numpy")
+
+    monkeypatch.setattr(tio, "open_sc16", no_memmap)
+    monkeypatch.setattr(np, "memmap", no_memmap)
+    for (t, _, a, k), w in zip(cases, want):
+        got = t(*a, **k)
+        g, w = (got, w) if t is tio.decimate_sc16 else (got[0], w[0])
+        assert g.dtype == w.dtype and g.shape == w.shape, (t.__name__, a, k)
+        np.testing.assert_array_equal(g, w)
+    assert tio.decimate_sc16(p6, 5).shape == (2, 0)
+    outs = [(dt, sel) for dt in (np.float32, np.float16) for sel in (None, 1)]
+    for (dt, sel), w in zip(outs, want_out):
+        out = np.full((2 if sel is None else 1, 6, L, 2), 99, dt)
+        got, k = tio.read_sc16_epochs_ri(p, 2, 4, L, dtype=dt, select=sel, out=out)
+        assert k == 4 and np.shares_memory(got, out) and not (out[:, 4:] != 99).any()
+        np.testing.assert_array_equal(out[:, :4], w)
 
 
 def test_save_mat_matches_jax_and_loads(tmp_path):
@@ -310,11 +367,16 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch, q8_
     with pytest.raises(RuntimeError, match="(?s)native library build failed.*no-such-g"):
         tnative.load()
     p, _, L, _ = q8_file
-    monkeypatch.setenv("TWSTFT_Q8_NATIVE", "1")
+    monkeypatch.setenv("TWSTFT_Q8_NATIVE", "0")  # the JAX package's switch only
     with pytest.raises(RuntimeError, match="build failed"):
         tio.read_sc16_epochs_q8(p, 0, 2, L)
     with pytest.raises(RuntimeError, match="build failed"):
         tio.read_sc16_epochs_raw16(p, 0, 2, L)
+    for read in (tio.read_sc16_epochs_ri, tio.read_sc16_epochs_packed):
+        with pytest.raises(RuntimeError, match="build failed"):
+            read(p, 0, 2, L)
+    with pytest.raises(RuntimeError, match="build failed"):
+        tio.decimate_sc16(p, 5)
     with pytest.raises(RuntimeError, match="build failed"):
         tlfsr.find_mseq_taps(10, 2)
     assert not os.listdir(tmp_path / "lib")  # no partial library left
